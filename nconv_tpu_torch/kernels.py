@@ -1,0 +1,191 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
+``sm_90a`` (one ``nvcc -c`` per source, all started together, then one
+link) into a shared library with a plain C interface under
+``build/nconv_tpu_torch/`` beside the package, and bound with ``ctypes``.
+The library's file name carries a hash of the sources and flags, so an edit
+rebuilds it. Nothing here runs at import time.
+
+Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
+launches its kernel, and nowhere else, so a caller can show which kernels a
+run went through (:func:`reset_launch_counts`, :func:`launch_counts`).
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nconv_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+]
+
+# launches per kernel, counted by the wrappers in ops/
+LAUNCHES: dict[str, int] = {
+    "nconv": 0, "conv": 0, "conv_transpose": 0, "conv_chain": 0,
+}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+build_seconds: float | None = None  # wall time of this process's build, if it built
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # name: argtypes (all return int = cudaGetLastError())
+    "nct_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, P],
+    "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
+    "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
+    "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
+}
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME", "") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source tree has no library yet; returns
+    the library's path."""
+    global build_seconds
+    so = BUILD_DIR / f"libnconv_tpu_torch_{_digest()}.so"
+    if so.exists():
+        return so
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}_{os.getpid()}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    errors = []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name}:\n{out}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
+        capture_output=True, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent build sees a whole file
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            cdll.nct_error_string.argtypes = [ctypes.c_int]
+            cdll.nct_error_string.restype = ctypes.c_char_p
+            _lib = cdll
+    return _lib
+
+
+def on_card(*tensors: torch.Tensor | None) -> bool:
+    """True when every given tensor is on a CUDA device (the kernel path),
+    False when every one is on the CPU (the plain path); raises otherwise."""
+    types = {t.device.type for t in tensors if t is not None}
+    if types == {"cuda"}:
+        return True
+    if types == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on mixed or unsupported devices: {sorted(types)}")
+
+
+@contextlib.contextmanager
+def exact_f32(t: torch.Tensor):
+    """Full-f32 convolutions and matmuls (no TF32) while a plain version
+    runs on the card; a no-op for CPU tensors."""
+    if t.device.type != "cuda":
+        yield
+        return
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = lib().nct_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def part_args(parts: list[torch.Tensor], up2: list[bool]):
+    """ctypes arrays for a list of NCHW-indexed parts (any strides)."""
+    n = len(parts)
+    ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in parts])
+    meta = []
+    for p, u in zip(parts, up2):
+        meta += [p.shape[1], int(u), *p.stride()]
+    return ptrs, (ctypes.c_longlong * len(meta))(*meta)

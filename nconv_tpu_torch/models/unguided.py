@@ -1,0 +1,65 @@
+"""Unguided sparse-to-dense depth network (step 1): a 3-level
+confidence-carrying encoder-decoder of normalized convolutions.
+
+Geometry: nconv6 runs 3x3 with pad 0 (shrinks H, W by 2) and nconv7 is 1x1
+with pad 2 (grows by 4), so the output is cropped ``[1:H+1, 1:W+1]``; the
+crop is folded into nconv7's output geometry. The decoder's
+``[skip | upsampled]`` concats and 2x nearest upsamples enter the fused
+nconv op as separate parts, and the three encoder pools are emitted by the
+nconvs before them, so none of them exists as a tensor of its own.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .backend import resolve_device
+from .nconv_layers import NConv2d
+
+CONF_THRESHOLD = 0.01  # confidence seed: c0 = (depth > 0.01)
+
+
+class NConvUNet(nn.Module):
+    """Input ``(B, H, W, 1)`` sparse depth (H, W divisible by 8); output
+    ``(dense_depth, confidence)``, both ``(B, H, W, 1)`` float32."""
+
+    def __init__(self, num_channels: int = 8, pos_fn: str = "softplus", *,
+                 device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        g = torch.Generator().manual_seed(seed)
+        c = num_channels
+
+        def mk(cin, cout, k, pad, init="p"):
+            return NConv2d(cin, cout, k, pad, pos_fn=pos_fn, init_method=init,
+                           generator=g, device=dev)
+
+        self.nconv1 = mk(1, c, 5, 2)
+        self.nconv2 = mk(c, c, 5, 2)
+        self.nconv_down1 = mk(c, c, 5, 2)
+        self.nconv_down2 = mk(c, c, 5, 2)
+        self.nconv_down3 = mk(c, c, 5, 2)
+        self.nconv4 = mk(2 * c, c, 3, 1)
+        self.nconv5 = mk(2 * c, c, 3, 1)
+        self.nconv6 = mk(2 * c, c, 3, 0)
+        self.nconv7 = mk(c, 1, 1, 2, init="k")
+
+    @torch.no_grad()
+    def forward(self, sparse: torch.Tensor):
+        b, h, w, _ = sparse.shape
+        if h % 8 or w % 8:
+            raise ValueError(f"NConvUNet needs H and W divisible by 8; got {h}x{w}")
+        x0 = sparse.float().reshape(b, 1, h, w)
+        c0 = (x0 > CONF_THRESHOLD).float()
+
+        x1, c1 = self.nconv1(x0, c0)
+        x1, c1, x1d, c1d = self.nconv2(x1, c1, pool_out=True)
+        x2, c2, x2d, c2d = self.nconv_down1(x1d, c1d, pool_out=True)
+        x3, c3, x3d, c3d = self.nconv_down2(x2d, c2d, pool_out=True)
+        x4, c4 = self.nconv_down3(x3d, c3d)
+
+        x34, c34 = self.nconv4([x3, x4], [c3, c4], up2=[False, True])
+        x23, c23 = self.nconv5([x2, x34], [c2, c34], up2=[False, True])
+        xo, co = self.nconv6([x23, x1], [c23, c1], up2=[True, False])  # (H-2, W-2)
+        xo, co = self.nconv7(xo, co, crop=1)  # (H+2, W+2) cropped to (H, W)
+        return xo.reshape(b, h, w, 1), co.reshape(b, h, w, 1)

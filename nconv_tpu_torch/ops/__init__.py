@@ -1,0 +1,28 @@
+"""Tensor ops of the port (NCHW, torch weight layouts)."""
+from .convops import (
+    conv2d,
+    conv3x3,
+    conv3x3_chain2,
+    conv3x3_chain2_plain,
+    conv3x3_plain,
+    conv_transpose2d,
+    conv_transpose4x4s2,
+    conv_transpose4x4s2_plain,
+)
+from .nconv import (
+    EPS_DEFAULT,
+    POS_FNS,
+    nconv2d,
+    nconv2d_fused,
+    nconv2d_fused_plain,
+)
+from .pool import max_pool_pair
+from .resize import downscale_bilinear, resize_bilinear, resize_nearest
+
+__all__ = [
+    "EPS_DEFAULT", "POS_FNS", "conv2d", "conv3x3", "conv3x3_chain2",
+    "conv3x3_chain2_plain", "conv3x3_plain", "conv_transpose2d",
+    "conv_transpose4x4s2", "conv_transpose4x4s2_plain", "downscale_bilinear",
+    "max_pool_pair", "nconv2d", "nconv2d_fused", "nconv2d_fused_plain",
+    "resize_bilinear", "resize_nearest",
+]

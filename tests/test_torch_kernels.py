@@ -1,0 +1,114 @@
+"""The port's kernel wrappers, without JAX.
+
+The ``cuda`` tests hold each hand-written kernel against its plain PyTorch
+version on the card (bars: rel RMSE 1e-5 in f32, 5e-3 in bf16, the output
+rounding); they skip without a GPU. On the card, run this file alone:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
+
+(``--noconftest``: the suite's conftest imports jax, which the card's
+machine need not have.) The other tests check the wrappers' dispatch and
+input checks on the CPU.
+"""
+import pytest
+import torch
+
+from nconv_tpu_torch import kernels, ops
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    return torch.device("cuda")
+
+
+def _close(a, b, bar):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm()) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_match_plain_versions(card, dtype):
+    g = torch.Generator(device=card).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, device=card).to(dtype)
+    bar = 1e-5 if dtype == torch.float32 else 5e-3
+    parts = [r(2, 5, 20, 36), r(2, 3, 20, 36)]
+    w, b, sc = r(32, 8, 3, 3), r(32), r(32, 8, 1, 1)
+    for stride in (1, 2):
+        for shortcut in (None, sc):
+            assert _close(ops.conv3x3(parts, w, b, stride=stride, relu=True, shortcut=shortcut),
+                          ops.conv3x3_plain(parts, w, b, stride=stride, relu=True, shortcut=shortcut), bar)
+    head = r(1, 8, 3, 3)
+    assert _close(ops.conv3x3(parts, head), ops.conv3x3_plain(parts, head), bar)
+    wt = r(8, 16, 4, 4)
+    assert _close(ops.conv_transpose4x4s2(parts, wt, b[:16]),
+                  ops.conv_transpose4x4s2_plain(parts, wt, b[:16]), bar)
+    x = r(2, 32, 20, 36)
+    w1, w2 = r(32, 32, 3, 3) * 0.1, r(16, 32, 3, 3) * 0.1
+    assert _close(ops.conv3x3_chain2(x, w1, b, w2, b[:16]),
+                  ops.conv3x3_chain2_plain(x, w1, b, w2, b[:16]), bar)
+
+
+@pytest.mark.cuda
+def test_conv_kernel_decodes_a_u8_nhwc_frame(card):
+    g = torch.Generator(device=card).manual_seed(1)
+    frame = torch.randint(0, 256, (2, 20, 36, 3), generator=g, device=card, dtype=torch.uint8)
+    x = frame.permute(0, 3, 1, 2)  # read through its strides
+    w, sc = torch.randn(32, 3, 3, 3, generator=g, device=card), torch.randn(32, 3, 1, 1, generator=g, device=card)
+    b = torch.randn(32, generator=g, device=card)
+    got = ops.conv3x3([x], w, b, relu=True, shortcut=sc)
+    assert got.dtype == torch.float32
+    assert _close(got, ops.conv3x3_plain([x], w, b, relu=True, shortcut=sc), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,pad,crop,pool,up2", [
+    (5, 2, 0, True, None), (3, 1, 0, False, [False, True]),
+    (3, 0, 0, False, [True, False]), (1, 2, 1, False, None),
+])
+def test_nconv_kernel_matches_plain_version(card, k, pad, crop, pool, up2):
+    g = torch.Generator(device=card).manual_seed(2)
+    rnd = lambda *s: torch.rand(*s, generator=g, device=card)
+    if up2 is None:
+        shapes = [(2, 8, 20, 36)]
+    else:
+        shapes = [(2, 8, 10, 18) if u else (2, 8, 20, 36) for u in up2]
+    d = [rnd(*s) * 10 for s in shapes]
+    c = [(rnd(*s) > 0.5).float() for s in shapes]
+    cout = 1 if k == 1 else 8
+    w = rnd(cout, 8 * len(shapes), k, k)
+    b = torch.randn(cout, generator=g, device=card)
+    got = ops.nconv2d_fused(d, c, w, b, padding=pad, up2=up2, crop=crop, pool_out=pool)
+    want = ops.nconv2d_fused_plain(d, c, w, b, padding=pad, up2=up2 or [False], crop=crop, pool_out=pool)
+    assert len(got) == len(want)
+    assert all(_close(a, e, 1e-5) for a, e in zip(got, want))
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    kernels.reset_launch_counts()
+    x = torch.randn(1, 4, 8, 8)
+    ops.conv3x3([x], torch.randn(8, 4, 3, 3), relu=True)
+    ops.conv_transpose4x4s2([x], torch.randn(4, 8, 4, 4))
+    ops.conv3x3_chain2(x, torch.randn(8, 4, 3, 3), torch.zeros(8), torch.randn(8, 8, 3, 3), torch.zeros(8))
+    ops.nconv2d_fused([x.abs()], [torch.ones_like(x)], torch.rand(8, 4, 3, 3), torch.zeros(8), padding=1)
+    assert kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
+
+
+def test_wrappers_reject_mixed_devices():
+    with pytest.raises(ValueError):
+        kernels.on_card(torch.zeros(1), torch.empty(0, device="meta"))
+
+
+def test_wrappers_check_their_inputs():
+    x = torch.randn(1, 4, 8, 8)
+    with pytest.raises(ValueError):  # parts disagree on (B, H, W)
+        ops.conv3x3([x, torch.randn(1, 4, 8, 9)], torch.randn(8, 8, 3, 3))
+    with pytest.raises(TypeError):  # parts must share a dtype
+        ops.conv_transpose4x4s2([x, x.to(torch.bfloat16)], torch.randn(8, 8, 4, 4))
+    with pytest.raises(ValueError):  # the residual form has its ReLU
+        ops.conv3x3([x], torch.randn(8, 4, 3, 3), shortcut=torch.randn(8, 4, 1, 1))
+    with pytest.raises(ValueError):  # an upsampled part must be half the size
+        ops.nconv2d_fused([x, x], [x, x], torch.rand(8, 8, 3, 3), torch.zeros(8),
+                          padding=1, up2=[False, True])
