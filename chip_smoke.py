@@ -15,7 +15,9 @@ Phases (any failure raises and the script exits non-zero):
   3. the main path: ``StreamingEngine`` with random-init weights carried
      through BN folding, in f32 and in the mixed schedule, answering
      two-stream requests of synthetic frames; outputs must be finite, zero
-     on the sensor border, match the plain path on the card, and every
+     on the sensor border, and match the plain path on the card, both as a
+     whole and in their guided residual (output less the step-1 dense
+     depth); the mixed output must match the f32 plain path; and every
      kernel must have been launched the expected number of times.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
@@ -37,9 +39,13 @@ H, W = 352, 1216  # KITTI
 N_REQUESTS = 10
 REPS = 20
 F32_BAR, BF16_BAR = 1e-5, 5e-3  # kernel vs plain, rel RMSE; bf16: output rounding
-ENGINE_F32_BAR, MIXED_BAR = 1e-4, 1e-3
+ENGINE_BAR, MIXED_BAR = 1e-4, 1e-3  # engine kernel vs plain path; mixed vs f32 plain
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "uint8": 67e12}  # FLOP/s by input type
+# FLOP/s by a call's compute type, which is its output's storage type: in the
+# mixed schedule every operand holds bf16 values (weights are rounded to bf16
+# once, a u8 pixel is exact in bf16), so the card could run it at the bf16
+# tensor-core rate; f32 calls get the f32 CUDA-core rate.
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 PER_FRAME = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "nconv": ("nconv_tpu_torch/csrc/nconv.cu", "nconv_tpu/ops/pallas_nconv_mxu.py:52"),
@@ -146,6 +152,13 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def _held_at(dtype, *ts):
+    """Weights as the main path holds them: f32 tensors at ``dtype``'s values."""
+    import torch
+
+    return [None if t is None else t.to(getattr(torch, dtype)).float() for t in ts]
+
+
 def check_call(key, g):
     """Kernel vs plain (and the library yardstick) on random inputs shaped
     like one recorded main-path call. Returns a result dict."""
@@ -175,6 +188,7 @@ def check_call(key, g):
         w = _rand(wsig, g, scale=fan ** -0.5)
         b = _rand(((wsig[0][0],), wsig[1], False), g) if has_b else None
         sc = _rand(scsig, g, scale=wsig[0][1] ** -0.5) if scsig else None
+        w, b, sc = _held_at(out_dt, w, b, sc)
         od = getattr(torch, out_dt)
         kern = lambda: convops._conv3x3_kernel(parts, w, b, stride, relu, sc, od)
         plain = lambda: convops.conv3x3_plain(parts, w, b, stride=stride, relu=relu, shortcut=sc, out_dtype=od)
@@ -187,25 +201,28 @@ def check_call(key, g):
     elif kind == "conv_transpose":
         _, psigs, wsig, has_b, relu = key
         parts = [_rand(s, g) for s in psigs]
+        out_dt = psigs[0][1]
         w = _rand(wsig, g, scale=(16 * wsig[0][0]) ** -0.5)
         b = _rand(((wsig[0][1],), wsig[1], False), g) if has_b else None
+        w, b = _held_at(out_dt, w, b)
         kern = lambda: convops._conv_transpose_kernel(parts, w, b, relu)
         plain = lambda: convops.conv_transpose4x4s2_plain(parts, w, b, relu=relu)
         xl = torch.cat(parts, 1).contiguous()
-        library = lambda: F.conv_transpose2d(xl, w, b, stride=2, padding=1)
-        out_dt = psigs[0][1]
+        wl, bl = w.to(xl.dtype), None if b is None else b.to(xl.dtype)
+        library = lambda: F.conv_transpose2d(xl, wl, bl, stride=2, padding=1)
         macs_per_out = wsig[0][0] * 4
         inputs = parts + [w, b]
     else:
         _, xsig, w1sig, w2sig = key
+        out_dt = xsig[1]
         x = _rand(xsig, g)
         w1 = _rand(w1sig, g, scale=(9 * w1sig[0][1]) ** -0.5)
         w2 = _rand(w2sig, g, scale=(9 * w2sig[0][1]) ** -0.5)
         b1 = _rand(((w1sig[0][0],), w1sig[1], False), g)
         b2 = _rand(((w2sig[0][0],), w2sig[1], False), g)
+        w1, b1, w2, b2 = _held_at(out_dt, w1, b1, w2, b2)
         kern = lambda: convops._chain_kernel(x, w1, b1, w2, b2)
         plain = lambda: convops.conv3x3_chain2_plain(x, w1, b1, w2, b2)
-        out_dt = xsig[1]
         cin, cmid, cout = w1sig[0][1], w1sig[0][0], w2sig[0][0]
         macs_per_out = 9 * (cmid * cin + cout * cmid) / cout
         inputs = [x, w1, b1, w2, b2]
@@ -220,8 +237,7 @@ def check_call(key, g):
     out_elems = k_out[0].numel()
     flops = 2 * macs_per_out * out_elems
     nbytes = _nbytes(*inputs, *k_out)
-    in_type = inputs[0].dtype
-    t_ops = flops / PEAK_OPS[str(in_type).replace("torch.", "")] * 1e3
+    t_ops = flops / PEAK_OPS[out_dt] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(
         kind=kind, err=err, abs_err=abs_err, bar=bar, out_dtype=out_dt,
@@ -276,6 +292,24 @@ def random_state(seed=0):
         elif k.endswith(".bn.bias"):
             sd[k] = (torch.randn(sd[k].shape, generator=g) * 0.1).cuda()
     return sd
+
+
+def step1_dense(eng, frame):
+    """The step-1 dense depth of both streams of ``frame``, (2, H, W, 1) f32."""
+    import torch
+
+    depth = torch.cat([eng._decode_depth(eng._stage(d, 1)) for d in (frame[1], frame[3])])
+    return eng.model.step1(depth)[0].reshape(2, H, W, 1).float()
+
+
+def readings(eng, frame, outs):
+    """(both streams' output, its guided residual): the residual is the
+    output less the step-1 dense depth inside the sensor border, the part
+    the RGB-guided (bf16 in the mixed schedule) branch computes."""
+    import torch
+
+    out = torch.cat(outs).float()
+    return out, (out - step1_dense(eng, frame))[:, 45:H - 45, 20:]
 
 
 @contextmanager
@@ -354,7 +388,7 @@ def main() -> int:
     # -- 3. the main path: two-stream requests through StreamingEngine
     with torch.no_grad():
         with plain_versions():
-            ref = {n: [e(*f)[0].float() for f in frames[:2]] for n, e in engines.items()}
+            ref = {n: [readings(e, f, e(*f)) for f in frames[:2]] for n, e in engines.items()}
         summary = {}
         for name in ("f32", "mixed"):
             eng = engines[name]
@@ -375,18 +409,24 @@ def main() -> int:
                         raise SystemExit(f"chip_smoke: {name}: bad output {tuple(o.shape)}")
                     if o[:, :45].abs().max() != 0 or o[:, H - 45:].abs().max() != 0 or o[:, :, :20].abs().max() != 0:
                         raise SystemExit(f"chip_smoke: {name}: sensor border is not zero")
-            e_plain = max(rel_rmse(outs[i][0].float(), ref[name][i]) for i in range(2))
-            e_f32 = max(rel_rmse(outs[i][0].float(), ref["f32"][i]) for i in range(2))
-            bar = ENGINE_F32_BAR if name == "f32" else MIXED_BAR
-            err = e_plain if name == "f32" else e_f32
+            got = [readings(eng, frames[i], outs[i]) for i in range(2)]
+            err = lambda r, j: max(rel_rmse(got[i][j], r[i][j]) for i in range(2))
+            # kernel path vs plain path: the output, and its guided residual
+            # (bf16 output rounding in the mixed schedule); mixed vs f32 plain
+            checks = {"kernel_vs_plain": (err(ref[name], 0), ENGINE_BAR),
+                      "residual_kernel_vs_plain": (err(ref[name], 1), ENGINE_BAR if name == "f32" else BF16_BAR)}
+            if name == "mixed":
+                checks["vs_f32_plain"] = (err(ref["f32"], 0), MIXED_BAR)
             stats = benchmark(eng, n_frames=N_REQUESTS * 2, warmup=2, frame_factory=lambda i: frames[i % len(frames)])
-            summary[name] = dict(kernel_vs_plain=e_plain, vs_f32_plain=e_f32, p50_ms=stats.p50_ms,
+            summary[name] = dict(**{k: v for k, (v, _) in checks.items()}, p50_ms=stats.p50_ms,
                                  p90_ms=stats.p90_ms, counts=counts)
-            log(f"[{'ok' if err <= bar else 'FAIL'}] engine {name}: {N_REQUESTS} requests, kernel vs plain "
-                f"{e_plain:.2e}, vs f32 plain {e_f32:.2e} (bar {bar:.0e}); p50 {stats.p50_ms:.3f} ms "
-                f"p90 {stats.p90_ms:.3f} ms per two-stream frame ({stats.clock}); launches {counts}")
-            if err > bar:
-                raise SystemExit(f"chip_smoke: engine {name} misses its bar: {err:.2e} > {bar:.0e}")
+            missed = {k: v for k, v in checks.items() if v[0] > v[1]}
+            log(f"[{'FAIL' if missed else 'ok'}] engine {name}: {N_REQUESTS} requests, "
+                + ", ".join(f"{k} {v:.2e} (bar {b:.0e})" for k, (v, b) in checks.items())
+                + f"; p50 {stats.p50_ms:.3f} ms p90 {stats.p90_ms:.3f} ms per two-stream frame "
+                f"({stats.clock}); launches {counts}")
+            if missed:
+                raise SystemExit(f"chip_smoke: engine {name} misses its bars: {missed}")
 
     # -- report: one entry per kernel, per-frame sums over the mixed main path
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"

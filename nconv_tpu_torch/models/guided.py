@@ -4,8 +4,10 @@ encoder pyramid. Two input streams are batch-concatenated through shared
 weights.
 
 Precision: ``dtype`` is the feature-conv compute dtype (bf16 for the mixed
-schedule); step 1 and every depth tensor stay f32, and the per-scale
-residual adds promote the head's output back to f32.
+schedule). The feature convs' weights are rounded to it once, at
+construction and whenever a state dict is loaded. Step 1 and every depth
+tensor stay f32, and the per-scale residual adds promote the head's output
+back to f32.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from .layers import (
     ConvBlock,
     RGBEncoder,
     conv_chain,
+    round_weights_,
 )
 from .unguided import NConvUNet
 
@@ -128,16 +131,12 @@ class GuidedDepthNet(nn.Module):
         *,
         step1_pos_fn: str = "softplus",
         dtype: torch.dtype = torch.float32,
-        step1_dtype: torch.dtype | None = torch.float32,
         fold_bn: bool = False,
         device=None,
         seed: int = 0,
     ):
         super().__init__()
-        if step1_dtype not in (None, torch.float32):
-            raise ValueError("step 1 runs in float32")
-        self.config = dict(step1_pos_fn=step1_pos_fn, dtype=dtype,
-                           step1_dtype=step1_dtype, fold_bn=fold_bn, seed=seed)
+        self.config = dict(step1_pos_fn=step1_pos_fn, dtype=dtype, fold_bn=fold_bn, seed=seed)
         dev = resolve_device(device)
         self.dtype, self.fold_bn = dtype, fold_bn
         self.step1 = NConvUNet(pos_fn=step1_pos_fn, device=dev, seed=seed)
@@ -152,6 +151,8 @@ class GuidedDepthNet(nn.Module):
         self.fuse1 = FusionResolutionBlock(64, 64, 4, 64, fold_bn=fold_bn, **kw)
         self.fuse2 = FusionResolutionBlock(64, 32, 2, 64, fold_bn=fold_bn, **kw)
         self.fuse3 = FusionResolutionBlock(32, 32, 1, 32, fold_bn=fold_bn, **kw)
+        round_weights_(self, dtype)  # step 1 holds NConv2d weights only, left f32
+        self.register_load_state_dict_post_hook(lambda m, _keys: round_weights_(m, m.dtype))
         self.eval()
 
     @property

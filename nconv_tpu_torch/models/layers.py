@@ -1,8 +1,10 @@
 """Building blocks of the guided network, eval forms (NCHW).
 
 Every conv takes its input as a list of parts (a logical channel concat
-that is never materialized) and runs in a compute ``dtype``: parts and
-weights are rounded to it, arithmetic is f32, the output is stored in it.
+that is never materialized) and runs in a compute ``dtype``: parts are
+rounded to it, arithmetic is f32, the output is stored in it. Weights are
+used as they are held: :class:`~.guided.GuidedDepthNet` rounds them to its
+compute dtype once, when it loads them (:func:`round_weights_`).
 Blocks built with ``fold_bn=True`` hold BatchNorm already folded into the
 conv (see :mod:`.fold`) and run as one fused kernel each; unfolded blocks
 run conv, :class:`_ChannelBN` and ReLU in turn.
@@ -42,9 +44,8 @@ class Conv(nn.Module):
 
     def forward(self, x, *, dtype, stride=1, relu=False, shortcut=None):
         """3x3 pad-1 conv of ``x`` (a tensor or a list of parts)."""
-        b = None if self.bias is None else self.bias.to(dtype)
         return conv3x3(
-            _to(_parts(x), dtype), self.weight.to(dtype), b, stride=stride,
+            _to(_parts(x), dtype), self.weight, self.bias, stride=stride,
             relu=relu, shortcut=shortcut, out_dtype=dtype,
         )
 
@@ -60,8 +61,7 @@ class ConvTranspose(nn.Module):
         self.bias = _uniform((cout,), bound, generator, device) if bias else None
 
     def forward(self, x, *, dtype, relu):
-        b = None if self.bias is None else self.bias.to(dtype)
-        return conv_transpose4x4s2(_to(_parts(x), dtype), self.weight.to(dtype), b, relu=relu)
+        return conv_transpose4x4s2(_to(_parts(x), dtype), self.weight, self.bias, relu=relu)
 
 
 class _ChannelBN(nn.Module):
@@ -146,7 +146,7 @@ class RGBEncoder(nn.Module):
         self.shortcut = Conv(cin, cout, 1, bias=False, generator=generator, device=device)
 
     def forward(self, x, *, dtype):
-        sc = self.shortcut.weight.to(dtype)
+        sc = self.shortcut.weight
         if self.fold_bn:
             return self.conv(x, dtype=dtype, stride=self.stride, relu=True, shortcut=sc)
         out = torch.relu(self.bn(self.conv(x, dtype=dtype, stride=self.stride)))
@@ -169,7 +169,18 @@ class Conv3x3Head(nn.Module):
 def conv_chain(x, first: ConvBlock, second: ConvBlock, *, dtype):
     """Two ConvBlocks as one kernel launch (intermediate kept on chip)."""
     c1, c2 = first.conv, second.conv
-    return conv3x3_chain2(
-        x.to(dtype).contiguous(), c1.weight.to(dtype), c1.bias.to(dtype),
-        c2.weight.to(dtype), c2.bias.to(dtype),
-    )
+    return conv3x3_chain2(x.to(dtype).contiguous(), c1.weight, c1.bias, c2.weight, c2.bias)
+
+
+@torch.no_grad()
+def round_weights_(module: nn.Module, dtype: torch.dtype) -> None:
+    """Round, in place, every :class:`Conv` and :class:`ConvTranspose`
+    weight and bias under ``module`` to ``dtype``'s values; they stay f32
+    tensors, which the convs read as they are."""
+    if dtype == torch.float32:
+        return
+    for m in module.modules():
+        if isinstance(m, (Conv, ConvTranspose)):
+            for p in (m.weight, m.bias):
+                if p is not None:
+                    p.copy_(p.to(dtype).float())

@@ -26,12 +26,10 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--frames", type=int, default=10)
-    ap.add_argument("--height", type=int, default=352)
-    ap.add_argument("--width", type=int, default=1216)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
-    h, w = args.height, args.width
+    h, w = 352, 1216
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     state = GuidedDepthNet(device="cuda").state_dict()
     eng = StreamingEngine(state, height=h, width=w, compute_dtype=dtype)

@@ -152,6 +152,22 @@ def test_mixed_schedule_matches_f32_jax(guided_vars, export_case):
         assert rel(g.numpy(), w) <= 1e-3
 
 
+def test_mixed_model_rounds_feature_weights_once(guided_vars):
+    """The mixed model holds its conv weights at bf16 values (as f32
+    tensors) after loading; step 1 and the f32 model keep theirs exact."""
+    state = from_jax_variables(guided_vars)
+    f32 = GuidedDepthNet(device="cpu")
+    f32.load_state_dict(state)
+    mixed = GuidedDepthNet(device="cpu", dtype=torch.bfloat16)
+    mixed.load_state_dict(state)
+    for (name, p), (_, q) in zip(f32.state_dict().items(), mixed.state_dict().items()):
+        assert p.dtype == q.dtype == torch.float32, name
+        assert torch.equal(p, state[name]), name
+        conv = name.startswith(("rgb_encoder", "fuse")) and ".bn." not in name
+        assert torch.equal(q, p.bfloat16().float() if conv else p), name
+    assert not torch.equal(mixed.fuse3.conv.conv.weight, f32.fuse3.conv.conv.weight)
+
+
 def test_fold_matches_jax(guided_vars):
     want = from_jax_variables(fold_batchnorm_variables(guided_vars))
     got = fold_batchnorm_state(from_jax_variables(guided_vars))
