@@ -18,7 +18,16 @@ Phases (any failure raises and the script exits non-zero):
      on the sensor border, and match the plain path on the card, both as a
      whole and in their guided residual (output less the step-1 dense
      depth); the mixed output must match the f32 plain path; and every
-     kernel must have been launched the expected number of times.
+     kernel must have been launched the expected number of times;
+  4. step-1 training: ``Trainer(UnguidedTask(NConvUNet()))`` at full width
+     on KITTI 352x1216, batch 4, adamw, on the JAX bench's synthetic batch.
+     (a) the backward's kernels (K2's K x K form, K5) against their plain
+     versions at every distinct shape of one train step; (b) one train step
+     on the kernel path against the plain path, and both against the plain
+     path in float64 (the weight cotangent of a normalized conv cancels, so
+     its f32 rounding is measured, not assumed); (c) five steps of
+     ``Trainer.fit`` on one batch, loss finite and falling; (d) the launch
+     counts per train step; (e) train-step p50 / p90 from CUDA events.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``; every checked call's numbers go
@@ -26,6 +35,7 @@ to ``build/chip_smoke/chip_smoke_calls.json``. Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -47,12 +57,23 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 # tensor-core rate; f32 calls get the f32 CUDA-core rate.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 PER_FRAME = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
+# step 1 trains all 9 nconvs; nconv1's input (the sparse depth) needs no
+# gradient, so 8 input-gradient convs
+PER_TRAIN_STEP = {"nconv": 9, "conv_kxk": 8, "filtergrad": 9}
+TRAIN_B, TRAIN_FIT_STEPS, TRAIN_TIMED_STEPS = 4, 5, 20
+LOSS_BAR, GRAD_BAR = 1e-6, 1e-4  # train step, kernel path vs plain path
+# a gradient whose f32 rounding (plain f32 vs plain f64) exceeds GRAD_BAR is
+# held to GRAD_NOISE x that rounding instead
+GRAD_NOISE = 4.0
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "nconv": ("nconv_tpu_torch/csrc/nconv.cu", "nconv_tpu/ops/pallas_nconv_mxu.py:52"),
     "conv": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_transpose": ("nconv_tpu_torch/csrc/convt.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_chain": ("nconv_tpu_torch/csrc/chain.cu", "nconv_tpu/ops/pallas_chain.py:169"),
+    "conv_kxk": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "filtergrad": ("nconv_tpu_torch/csrc/filtergrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
 }
+TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per train step; K1 per frame
 
 
 def log(*a):
@@ -106,6 +127,7 @@ class Recorder:
         real = {
             "nc": nconv._nconv2d_kernel, "cv": convops._conv3x3_kernel,
             "ct": convops._conv_transpose_kernel, "ch": convops._chain_kernel,
+            "kx": convops._conv_kxk_kernel, "fg": convops._filtergrad_kernel,
         }
 
         def nc(d, c, w, b, padding, up2, crop, pool_out, eps):
@@ -125,10 +147,20 @@ class Recorder:
             self.note(("conv_chain", _sig(x), _sig(w1), _sig(w2)))
             return real["ch"](x, w1, b1, w2, b2)
 
+        def kx(x, w, padding):
+            self.note(("conv_kxk", _sig(x), _sig(w), padding))
+            return real["kx"](x, w, padding)
+
+        def fg(x, g, ksize, padding, pad_top):
+            self.note(("filtergrad", _sig(x), _sig(g), ksize, padding, pad_top))
+            return real["fg"](x, g, ksize, padding, pad_top)
+
         with mock.patch.object(nconv, "_nconv2d_kernel", nc), \
                 mock.patch.object(convops, "_conv3x3_kernel", cv), \
                 mock.patch.object(convops, "_conv_transpose_kernel", ct), \
-                mock.patch.object(convops, "_chain_kernel", ch):
+                mock.patch.object(convops, "_chain_kernel", ch), \
+                mock.patch.object(convops, "_conv_kxk_kernel", kx), \
+                mock.patch.object(convops, "_filtergrad_kernel", fg):
             yield
 
 
@@ -212,6 +244,33 @@ def check_call(key, g):
         library = lambda: F.conv_transpose2d(xl, wl, bl, stride=2, padding=1)
         macs_per_out = wsig[0][0] * 4
         inputs = parts + [w, b]
+    elif kind == "conv_kxk":
+        _, xsig, wsig, padding = key
+        x = _rand(xsig, g)
+        cout, cin, k, _ = wsig[0]
+        w = _rand(wsig, g, scale=(cin * k * k) ** -0.5)
+        kern = lambda: convops._conv_kxk_kernel(x, w, padding)
+        plain = lambda: convops.conv2d(x, w, padding=padding)
+        # the same function as the input cotangent of the forward conv whose
+        # flipped, in/out-transposed kernel w is: one library call
+        w_fwd = w.flip(2, 3).transpose(0, 1)
+        out_shape = (x.shape[0], cout, x.shape[2] + 2 * padding - k + 1, x.shape[3] + 2 * padding - k + 1)
+        library = lambda: torch.nn.grad.conv2d_input(out_shape, w_fwd, x, padding=k - 1 - padding)
+        out_dt = "float32"
+        macs_per_out = cin * k * k
+        inputs = [x, w]
+    elif kind == "filtergrad":
+        _, xsig, gsig, k, padding, pad_top = key
+        x, gr = _rand(xsig, g), _rand(gsig, g)
+        kern = lambda: convops._filtergrad_kernel(x, gr, k, padding, pad_top)
+        plain = lambda: convops.conv2d_weight_grad_plain(x, gr, k, padding, pad_top)
+        symmetric = pad_top == padding == gsig[0][2] - xsig[0][2] - padding + k - 1
+        w_shape = (gsig[0][1], xsig[0][1], k, k)
+        library = (lambda: torch.nn.grad.conv2d_weight(x, w_shape, gr, padding=padding)) if symmetric else None
+        out_dt = "float32"
+        b_, _, ho, wo = gsig[0]
+        macs_per_out = b_ * ho * wo  # each weight-cotangent entry sums B*Ho*Wo products
+        inputs = [x, gr]
     else:
         _, xsig, w1sig, w2sig = key
         out_dt = xsig[1]
@@ -322,6 +381,141 @@ def plain_versions():
         yield
 
 
+# ---------------------------------------------------------------------------
+# Step-1 training
+# ---------------------------------------------------------------------------
+
+def step_grads(batch, dtype, cfg, *, plain):
+    """Loss and parameter gradients of one train step of a seeded step-1
+    model on the card, in ``dtype``, on the kernel path or the plain path."""
+    import torch
+
+    from nconv_tpu_torch.models import NConvUNet
+    from nconv_tpu_torch.training import UnguidedTask
+
+    model = NConvUNet(device="cuda", seed=0).to(dtype)
+    b = {k: v.to(dtype) for k, v in batch.items()}
+    with plain_versions() if plain else contextlib.nullcontext():
+        loss = UnguidedTask(model).loss(b, cfg=cfg)
+        loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.double() for n, p in model.named_parameters()}
+
+
+def train_phase(g):
+    """Phase 4; returns (per-call results, distinct calls of one train step
+    with their counts, launch counts of the fit, summary)."""
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch import kernels
+    from nconv_tpu_torch.data import bench_batch
+    from nconv_tpu_torch.models import NConvUNet
+    from nconv_tpu_torch.training import OptimizerConfig, TrainConfig, Trainer, UnguidedTask
+
+    batch_np = bench_batch(TRAIN_B, H, W)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    cfg = TrainConfig(epochs=TRAIN_FIT_STEPS, batch_size=TRAIN_B, log_every=0,
+                      optimizer=OptimizerConfig("adamw", 1e-3, 1e-7))
+
+    # (a) every kernel call of one train step, at each distinct shape
+    r = Recorder()
+    with r.recording():
+        step_grads(batch, torch.float32, cfg, plain=False)
+    results, failures = {}, []
+    for key, count in r.calls.items():
+        res = check_call(key, g)
+        res["count"] = count
+        results[key] = res
+        ok = res["err"] <= res["bar"]
+        log(f"[{'ok' if ok else 'FAIL'}] {key[0]:<15} train out {res['shape'][0]} x{count} "
+            f"rel_rmse {res['err']:.2e} (bar {res['bar']:.0e}) max_abs {res['abs_err']:.2e} "
+            f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
+            f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
+            f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+        if not ok:
+            failures.append((key, res["err"]))
+    if failures:
+        raise SystemExit(f"chip_smoke: training kernels disagree with their plain versions: {failures}")
+    step_sums = {}
+    for kname in PER_TRAIN_STEP:
+        calls = [(k, v) for k, v in results.items() if k[0] == kname]
+        step_sums[kname] = {f: sum(v[f] * r.calls[k] for k, v in calls) for f in ("ms", "plain_ms", "bound_ms")}
+        libs = [v["library_ms"] for _, v in calls]
+        step_sums[kname]["library_ms"] = None if None in libs else sum(v["library_ms"] * r.calls[k] for k, v in calls)
+    log("per train step: " + "; ".join(
+        f"{k} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} lib {v['library_ms']} bound {v['bound_ms']:.4f}"
+        for k, v in step_sums.items()))
+
+    # (b) one train step: kernel path and plain path in f32, plain path in f64
+    loss_k, grads_k = step_grads(batch, torch.float32, cfg, plain=False)
+    loss_p, grads_p = step_grads(batch, torch.float32, cfg, plain=True)
+    loss_64, grads_64 = step_grads(batch, torch.float64, cfg, plain=True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    grad_checks, missed = {}, []
+    for name in grads_p:
+        vs_plain = rel_rmse(grads_k[name], grads_p[name])
+        rounding = rel_rmse(grads_p[name], grads_64[name])  # the f32 plain path's own error
+        bar = max(GRAD_BAR, GRAD_NOISE * rounding)
+        grad_checks[name] = dict(vs_plain=vs_plain, kernel_vs_f64=rel_rmse(grads_k[name], grads_64[name]),
+                                 plain_vs_f64=rounding, bar=bar)
+        if vs_plain > bar:
+            missed.append((name, vs_plain, bar))
+    log(f"[{'FAIL' if missed or loss_err > LOSS_BAR else 'ok'}] train step kernel vs plain: loss {loss_k:.6f} "
+        f"rel {loss_err:.2e} (bar {LOSS_BAR:.0e}; f64 loss {loss_64:.6f})")
+    for name, c in grad_checks.items():
+        log(f"    grad {name:<20} vs plain {c['vs_plain']:.2e} (bar {c['bar']:.1e})  "
+            f"kernel vs f64 {c['kernel_vs_f64']:.2e}  plain f32 vs f64 {c['plain_vs_f64']:.2e}")
+    if loss_err > LOSS_BAR or missed:
+        raise SystemExit(f"chip_smoke: train step kernel path vs plain path: loss {loss_err:.2e}, grads {missed}")
+
+    # (c) five adamw steps through Trainer.fit on the one batch
+    trainer = Trainer(UnguidedTask(NConvUNet(device="cuda", seed=0)), cfg, log_fn=lambda m: None)
+    kernels.reset_launch_counts()
+    fit = trainer.fit(lambda: [batch_np], lambda: [batch_np])
+    torch.cuda.synchronize()
+    fit_counts = kernels.launch_counts()
+    losses = fit.history["train_loss"] + fit.history["val_loss"][-1:]
+    want = {k: v * TRAIN_FIT_STEPS for k, v in PER_TRAIN_STEP.items()}
+    want["nconv"] += PER_TRAIN_STEP["nconv"] * TRAIN_FIT_STEPS  # one eval per epoch
+    falling = bool(np.all(np.isfinite(losses)) and losses[-1] < losses[0])
+    log(f"[{'ok' if falling else 'FAIL'}] Trainer.fit {TRAIN_FIT_STEPS} adamw steps, B={TRAIN_B} {H}x{W}: "
+        f"losses {[round(v, 6) for v in losses]}; launches {fit_counts}")
+    if not falling:
+        raise SystemExit(f"chip_smoke: training loss did not fall: {losses}")
+    if any(fit_counts[k] != v for k, v in want.items()):
+        raise SystemExit(f"chip_smoke: Trainer.fit launched {fit_counts}, expected {want}")
+
+    # (d) launches per train step and (e) its time, kernel path then plain path
+    times = {}
+    for path in ("kernel", "plain"):
+        with plain_versions() if path == "plain" else contextlib.nullcontext():
+            for _ in range(3):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            ts = []
+            for _ in range(TRAIN_TIMED_STEPS):
+                s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s_.record()
+                trainer.train_step(batch)
+                e_.record()
+                e_.synchronize()
+                ts.append(s_.elapsed_time(e_))
+            counts = kernels.launch_counts()
+        times[path] = dict(p50_ms=float(np.percentile(ts, 50)), p90_ms=float(np.percentile(ts, 90)))
+        if path == "kernel" and any(counts[k] != v * TRAIN_TIMED_STEPS for k, v in PER_TRAIN_STEP.items()):
+            raise SystemExit(f"chip_smoke: {TRAIN_TIMED_STEPS} train steps launched {counts}, "
+                             f"expected {PER_TRAIN_STEP} each")
+    log(f"[ok] train step (B={TRAIN_B}, {H}x{W}, f32, adamw): p50 {times['kernel']['p50_ms']:.3f} ms "
+        f"p90 {times['kernel']['p90_ms']:.3f} ms; plain path p50 {times['plain']['p50_ms']:.3f} ms "
+        f"p90 {times['plain']['p90_ms']:.3f} ms; launches per step {PER_TRAIN_STEP}")
+    per_step = {k: c for k, c in r.calls.items() if k[0] in TRAIN_KERNELS}
+    summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=grad_checks,
+                   fit_losses=losses, fit_counts=fit_counts, step_ms=times, kernel_sums_per_step=step_sums)
+    return results, per_step, fit_counts, summary
+
+
 def main() -> int:
     import torch
 
@@ -428,22 +622,31 @@ def main() -> int:
             if missed:
                 raise SystemExit(f"chip_smoke: engine {name} misses its bars: {missed}")
 
-    # -- report: one entry per kernel, per-frame sums over the mixed main path
+    # -- 4. step-1 training
+    train_results, train_calls, train_counts, train_summary = train_phase(g)
+
+    # -- report: one entry per kernel; sums per two-stream frame over the
+    # mixed main path for the serving kernels, per train step for the
+    # training kernels (launches: the serving run's, and the fit's)
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke_calls.json").write_text(json.dumps(
-        {"card": smi, "engines": summary,
-         "calls": [{"key": repr(k), **v} for k, v in results.items()]}, indent=1))
+        {"card": smi, "engines": summary, "training": train_summary,
+         "calls": [{"key": repr(k), **v} for k, v in {**results, **train_results}.items()]}, indent=1))
     entries = []
     for kname, (src, replaces) in KERNELS.items():
-        calls = [(k, r) for k, r in results.items() if k in rec["mixed"] and k[0] == kname]
-        tot = lambda f: sum(r[f] * rec["mixed"][k] for k, r in calls)
+        if kname in TRAIN_KERNELS:
+            per, res, launches = train_calls, train_results, train_counts[kname]
+        else:
+            per, res, launches = rec["mixed"], results, main_counts[kname]
+        calls = [(k, r) for k, r in res.items() if k in per and k[0] == kname]
+        tot = lambda f: sum(r[f] * per[k] for k, r in calls)
         libs = [r["library_ms"] for _, r in calls]
         bound = tot("bound_ms")
-        ops_share = sum(r["bound_ms"] * rec["mixed"][k] for k, r in calls if r["bound_by"] == "operations")
+        ops_share = sum(r["bound_ms"] * per[k] for k, r in calls if r["bound_by"] == "operations")
         entries.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=main_counts[kname],
+            launches=launches,
             max_abs_err=max(r["abs_err"] for _, r in calls),
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=bound,
             bound_by="operations" if ops_share > bound / 2 else "bytes",

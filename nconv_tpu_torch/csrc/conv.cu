@@ -1,6 +1,8 @@
 // K2: direct 3x3 pad-1 convolution, stride 1 or 2, + bias + optional ReLU,
 // with an optional fused residual epilogue relu(conv3x3(x) + b) + conv1x1(x)
-// (the 1x1 shortcut at the same stride reads the 3x3 window's centre tap).
+// (the 1x1 shortcut at the same stride reads the 3x3 window's centre tap);
+// and a K x K stride-1 f32 form without bias for the training backward
+// (below, nct_conv_kxk).
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel in its stride-1,
 // residual_channels, multi-part, uint8-decode and stride-2 (lane_stride2 /
@@ -132,6 +134,97 @@ static int dispatch_stride(const ConvArgs& a, int stride, bool res,
                      : dispatch_form<Tin, Tout, 2>(a, res, st);
 }
 
+// ---------------------------------------------------------------------------
+// K x K stride-1 form, f32 in and out, no bias and no ReLU, pad in [0, K-1]:
+// the input-gradient conv of the training backward (the cotangent against
+// the flipped, in/out-transposed kernel), which the TPU ran on the same
+// _kernel through transpose_conv_bhcw (pallas_conv.py:797). K is a template
+// parameter, so the tap loops stay unrolled. Same staging as the 3x3 form:
+// an input tile of K_CIC channels with its halo and the matching weights in
+// shared memory, COT output channels of one pixel per thread in registers.
+// The input is one part read through its strides, so a crop is a view.
+// ---------------------------------------------------------------------------
+
+constexpr int K_TW = 32, K_TH = 4, K_CIC = 8, K_THREADS = K_TW * K_TH;
+
+struct ConvKArgs {
+  Part x;  // (B, cin, H, W), any strides
+  int B, H, W, cin, ho, wo, cout, pad;
+  const float* w;  // (cout, cin, K, K)
+  float* out;      // (B, cout, ho, wo), contiguous
+};
+
+template <int K, int COT>
+__global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
+  constexpr int IW = K_TW + K - 1, IH = K_TH + K - 1;
+  __shared__ float xs[K_CIC][IH][IW];
+  __shared__ __align__(16) float ws[K_CIC * K * K][COT];
+
+  const int groups = (a.cout + COT - 1) / COT;
+  const int b = blockIdx.z / groups, co0 = (blockIdx.z % groups) * COT;
+  const int tx = threadIdx.x % K_TW, ty = threadIdx.x / K_TW;
+  const int ox = blockIdx.x * K_TW + tx, oy = blockIdx.y * K_TH + ty;
+  const int ix0 = blockIdx.x * K_TW - a.pad, iy0 = blockIdx.y * K_TH - a.pad;
+
+  float acc[COT];
+#pragma unroll
+  for (int j = 0; j < COT; ++j) acc[j] = 0.f;
+
+  for (int c0 = 0; c0 < a.cin; c0 += K_CIC) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < K_CIC * IH * IW; i += K_THREADS) {
+      const int cc = i / (IH * IW), r = i % (IH * IW);
+      const int yy = r / IW, xx = r % IW, c = c0 + cc;
+      xs[cc][yy][xx] = c < a.cin ? load_parts<float>(&a.x, 1, b, c, iy0 + yy,
+                                                     ix0 + xx, a.H, a.W)
+                                 : 0.f;
+    }
+    for (int i = threadIdx.x; i < K_CIC * K * K * COT; i += K_THREADS) {
+      const int j = i % COT, t = i / COT, cc = t / (K * K), k = t % (K * K);
+      const int co = co0 + j, c = c0 + cc;
+      ws[t][j] = (co < a.cout && c < a.cin)
+                     ? a.w[((long long)co * a.cin + c) * K * K + k]
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int cc = 0; cc < K_CIC; ++cc) {
+#pragma unroll
+      for (int ky = 0; ky < K; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < K; ++kx) {
+          const float v = xs[cc][ty + ky][tx + kx];
+          const float* wk = ws[(cc * K + ky) * K + kx];
+#pragma unroll
+          for (int j = 0; j < COT; ++j) acc[j] = fmaf(v, wk[j], acc[j]);
+        }
+      }
+    }
+  }
+
+  if (oy >= a.ho || ox >= a.wo) return;
+#pragma unroll
+  for (int j = 0; j < COT; ++j) {
+    const int co = co0 + j;
+    if (co < a.cout)
+      a.out[(((long long)b * a.cout + co) * a.ho + oy) * a.wo + ox] = acc[j];
+  }
+}
+
+template <int K, int COT>
+static int launch_kxk(const ConvKArgs& a, cudaStream_t st) {
+  const dim3 grid((a.wo + K_TW - 1) / K_TW, (a.ho + K_TH - 1) / K_TH,
+                  a.B * ((a.cout + COT - 1) / COT));
+  void (*k)(const ConvKArgs) = convkxk_kernel<K, COT>;
+  NCT_LAUNCH(k, grid, dim3(K_THREADS), 0, st, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+static int dispatch_kxk(const ConvKArgs& a, cudaStream_t st) {
+  return a.cout >= 16 ? launch_kxk<K, 16>(a, st) : launch_kxk<K, 8>(a, st);
+}
+
 }  // namespace nct
 
 // Plain C entry. parts: n pointers + 6*n metadata (see nct::fill_parts);
@@ -164,6 +257,30 @@ extern "C" int nct_conv3x3(const void* const* part_ptrs,
     case U8:
       return bf_out ? dispatch_stride<uint8_t, __nv_bfloat16>(a, stride, res, st)
                     : dispatch_stride<uint8_t, float>(a, stride, res, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry of the K x K stride-1 f32 form: one input part (pointer +
+// 6 metadata values, see nct::fill_parts), ksize in {1, 3, 5}, pad in
+// [0, ksize - 1], output (ho, wo) = (H, W) + 2 pad - ksize + 1.
+extern "C" int nct_conv_kxk(const void* const* x_ptr, const long long* x_meta,
+                            int B, int H, int W, int cin, int ho, int wo,
+                            int cout, int ksize, int pad, const float* w,
+                            float* out, void* stream) {
+  using namespace nct;
+  if (pad < 0 || pad > ksize - 1 || ho != H + 2 * pad - ksize + 1 ||
+      wo != W + 2 * pad - ksize + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ConvKArgs a{};
+  fill_parts(&a.x, x_ptr, x_meta, 1);
+  a.B = B, a.H = H, a.W = W, a.cin = cin, a.ho = ho, a.wo = wo;
+  a.cout = cout, a.pad = pad, a.w = w, a.out = out;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (ksize) {
+    case 1: return dispatch_kxk<1>(a, st);
+    case 3: return dispatch_kxk<3>(a, st);
+    case 5: return dispatch_kxk<5>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 # launches per kernel, counted by the wrappers in ops/
 LAUNCHES: dict[str, int] = {
     "nconv": 0, "conv": 0, "conv_transpose": 0, "conv_chain": 0,
+    "conv_kxk": 0, "filtergrad": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -43,11 +44,15 @@ build_seconds: float | None = None  # wall time of this process's build, if it b
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # name: argtypes (all return int = cudaGetLastError())
+    # name: argtypes (all return int: cudaGetLastError(), or for
+    # nct_filtergrad_tiles the row count of K5's partial-sum buffer)
     "nct_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, P],
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
     "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
     "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
+    "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, P, P, P],
+    "nct_filtergrad": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
+    "nct_filtergrad_tiles": [I, I, I],
 }
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -151,6 +156,18 @@ def on_card(*tensors: torch.Tensor | None) -> bool:
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(types)}")
 
 
+def no_graph(what: str, *tensors: torch.Tensor | None) -> None:
+    """Raise where a kernel would silently drop the autograd graph: the
+    kernels record none, so with grad enabled no input may require grad
+    (the training forward reaches K1 inside an autograd Function, whose
+    forward runs with grad disabled)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel records no autograd graph; call it under "
+            "torch.no_grad() or through its autograd Function"
+        )
+
+
 @contextlib.contextmanager
 def exact_f32(t: torch.Tensor):
     """Full-f32 convolutions and matmuls (no TF32) while a plain version
@@ -164,6 +181,12 @@ def exact_f32(t: torch.Tensor):
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is if float64: the plain versions compute
+    in at least f32, and in f64 they give a reference for the f32 paths."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -4,16 +4,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.nconv import EPS_DEFAULT, INIT_FNS, POS_FNS, nconv2d_fused
+from ..ops.nconv import EPS_DEFAULT, INIT_FNS, POS_FNS, nconv2d_fused, nconv2d_trainable
 
 
 class NConv2d(nn.Module):
     """Normalized convolution with confidence propagation, stride 1.
 
     ``weight`` (cout, cin, k, k) holds the raw kernel; ``pos_fn`` makes it
-    non-negative at every call. ``forward`` takes data and confidence as
-    tensors or as equal-length lists of parts (a logical channel concat),
-    see :func:`nconv_tpu_torch.ops.nconv2d_fused`.
+    non-negative at every call. With grad disabled, ``forward`` takes data
+    and confidence as tensors or as equal-length lists of parts (a logical
+    channel concat) and runs the fused forward, see
+    :func:`nconv_tpu_torch.ops.nconv2d_fused`. With grad enabled it takes
+    single full-resolution tensors and runs the differentiable form,
+    :func:`nconv_tpu_torch.ops.nconv2d_trainable`.
     """
 
     def __init__(
@@ -38,6 +41,12 @@ class NConv2d(nn.Module):
         self.bias = nn.Parameter(torch.full((out_channels,), bias_value, device=device))
 
     def forward(self, data, conf, *, up2=None, crop: int = 0, pool_out: bool = False):
+        if torch.is_grad_enabled():
+            if isinstance(data, (list, tuple)) or up2 or crop or pool_out:
+                raise ValueError("with grad enabled NConv2d takes single tensors; parts, "
+                                 "up2, crop and pool_out are forms of the no-grad forward")
+            return nconv2d_trainable(data, conf, POS_FNS[self.pos_fn](self.weight),
+                                     self.bias, padding=self.padding, eps=self.eps)
         d_parts = list(data) if isinstance(data, (list, tuple)) else [data]
         c_parts = list(conf) if isinstance(conf, (list, tuple)) else [conf]
         return nconv2d_fused(

@@ -14,6 +14,13 @@ Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
   * :func:`conv3x3_chain2` — K4 (``csrc/chain.cu``): two 3x3 conv + bias +
     ReLU stages with the intermediate kept on chip.
 
+Gradients of a stride-1 conv, for the training backward (f32):
+  * :func:`conv2d_input_grad` — the input cotangent, a conv of the output
+    cotangent with the flipped, in/out-transposed kernel on K2's K x K
+    stride-1 form (``csrc/conv.cu``, ``nct_conv_kxk``);
+  * :func:`conv2d_weight_grad` — the weight cotangent on K5
+    (``csrc/filtergrad.cu``).
+
 All arithmetic is f32: weights and bias are taken at the values they hold
 (the caller rounds them to the compute dtype), inputs are widened on load,
 and the output is rounded once to its storage type.
@@ -107,6 +114,7 @@ def conv3x3_plain(parts, weight, bias=None, *, stride=1, relu=False,
 
 
 def _conv3x3_kernel(parts, weight, bias, stride, relu, shortcut, out_dtype):
+    kernels.no_graph("conv3x3", *parts, weight, bias, shortcut)
     b, h, w = _check_same_geometry(parts)
     cout, cin = weight.shape[:2]
     if tuple(weight.shape[2:]) != (3, 3) or sum(p.shape[1] for p in parts) != cin:
@@ -164,6 +172,7 @@ def conv_transpose4x4s2_plain(parts, weight, bias=None, *, relu=True):
 
 
 def _conv_transpose_kernel(parts, weight, bias, relu):
+    kernels.no_graph("conv_transpose", *parts, weight, bias)
     b, h, w = _check_same_geometry(parts)
     cin, cout = weight.shape[:2]
     if tuple(weight.shape[2:]) != (4, 4) or sum(p.shape[1] for p in parts) != cin:
@@ -203,6 +212,7 @@ def conv3x3_chain2_plain(x, w1, b1, w2, b2):
 
 
 def _chain_kernel(x, w1, b1, w2, b2):
+    kernels.no_graph("conv_chain", x, w1, b1, w2, b2)
     b, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
     if tuple(w1.shape) != (cmid, cin, 3, 3) or tuple(w2.shape) != (cout, cmid, 3, 3):
@@ -218,4 +228,123 @@ def _chain_kernel(x, w1, b1, w2, b2):
     )
     kernels.check(code, "conv_chain kernel")
     kernels.LAUNCHES["conv_chain"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Gradients of a stride-1 conv: K2's K x K form and K5
+# ---------------------------------------------------------------------------
+
+def _input_grad_conv(cot, weight, padding):
+    """The conv that gives the input cotangent: ``cot`` against the
+    spatially flipped, in/out-transposed kernel at pad ``k - 1 - padding``;
+    a negative pad becomes a crop of ``cot`` first."""
+    k = weight.shape[-1]
+    w_t = weight.flip(2, 3).transpose(0, 1)
+    pad = k - 1 - padding
+    if pad < 0:
+        cot = cot[:, :, -pad:cot.shape[2] + pad, -pad:cot.shape[3] + pad]
+        pad = 0
+    return cot, w_t, pad
+
+
+def conv2d_input_grad(cot: torch.Tensor, weight: torch.Tensor, padding: int) -> torch.Tensor:
+    """Input cotangent (B, cin, H, W) of ``conv2d(x, weight, padding=padding)``
+    (stride 1, weight (cout, cin, k, k)) from its output cotangent ``cot``
+    (B, cout, Ho, Wo). f32."""
+    if not kernels.on_card(cot, weight):
+        return conv2d_input_grad_plain(cot, weight, padding)
+    cot, w_t, pad = _input_grad_conv(cot, weight, padding)
+    return _conv_kxk_kernel(cot, w_t, pad)
+
+
+def conv2d_input_grad_plain(cot, weight, padding):
+    """The plain PyTorch version of :func:`conv2d_input_grad`."""
+    cot, w_t, pad = _input_grad_conv(cot, weight, padding)
+    return conv2d(kernels.widen(cot), kernels.widen(w_t), padding=pad)
+
+
+def _conv_kxk_kernel(x, weight, padding):
+    kernels.no_graph("conv_kxk", x, weight)
+    b, cin, h, w = x.shape
+    cout, k = weight.shape[0], weight.shape[-1]
+    if tuple(weight.shape) != (cout, cin, k, k) or k not in (1, 3, 5) or not 0 <= padding < k:
+        raise ValueError(f"K2 k x k form takes k in (1, 3, 5), pad in [0, k); "
+                         f"got weight {tuple(weight.shape)}, x {tuple(x.shape)}, pad {padding}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"K2 k x k form takes float32, got {x.dtype}")
+    ho, wo = h + 2 * padding - k + 1, w + 2 * padding - k + 1
+    w32 = _f32(weight)
+    out = torch.empty((b, cout, ho, wo), device=x.device)
+    ptrs, meta = kernels.part_args([x], [False])
+    code = kernels.lib().nct_conv_kxk(
+        ptrs, meta, b, h, w, cin, ho, wo, cout, k, padding, w32.data_ptr(),
+        out.data_ptr(), kernels.stream_of(out),
+    )
+    kernels.check(code, "conv_kxk kernel")
+    kernels.LAUNCHES["conv_kxk"] += 1
+    return out
+
+
+def _weight_grad_pads(x, g, ksize, padding, pad_top):
+    """(pad_top, pad_bottom, pad_left, pad_right) of the forward conv, the
+    bottom and right pads implied by the output size."""
+    (b, _, h, w), (bg, _, ho, wo) = x.shape, g.shape
+    pads = (pad_top, ho - h - pad_top + ksize - 1, padding, wo - w - padding + ksize - 1)
+    if b != bg or min(pads) < 0:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} are not a "
+                         f"stride-1 {ksize}x{ksize} conv at pads {pads}")
+    return pads
+
+
+def conv2d_weight_grad(
+    x: torch.Tensor, g: torch.Tensor, ksize: int, padding: int, pad_top: int | None = None
+) -> torch.Tensor:
+    """Weight cotangent (cout, cin, k, k), f32, of a stride-1 conv: ``x``
+    (B, cin, H, W) is its input and ``g`` (B, cout, Ho, Wo) its output
+    cotangent. ``padding`` is the left pad and, unless ``pad_top`` is given,
+    the top pad; the bottom and right pads follow from (Ho, Wo)."""
+    pad_top = padding if pad_top is None else pad_top
+    _weight_grad_pads(x, g, ksize, padding, pad_top)
+    if not kernels.on_card(x, g):
+        return conv2d_weight_grad_plain(x, g, ksize, padding, pad_top)
+    return _filtergrad_kernel(x, g, ksize, padding, pad_top)
+
+
+def conv2d_weight_grad_plain(x, g, ksize, padding, pad_top=None):
+    """The plain PyTorch version of :func:`conv2d_weight_grad`: one
+    contraction over (B, Ho, Wo) per tap."""
+    pad_top = padding if pad_top is None else pad_top
+    pt, pb, pl, pr = _weight_grad_pads(x, g, ksize, padding, pad_top)
+    ho, wo = g.shape[2:]
+    xp = F.pad(kernels.widen(x), (pl, pr, pt, pb))
+    g = kernels.widen(g)
+    dw = g.new_empty((g.shape[1], x.shape[1], ksize, ksize))
+    with kernels.exact_f32(x):
+        for dy in range(ksize):
+            for dx in range(ksize):
+                dw[:, :, dy, dx] = torch.einsum(
+                    "bchw,bohw->oc", xp[:, :, dy:dy + ho, dx:dx + wo], g)
+    return dw
+
+
+def _filtergrad_kernel(x, g, ksize, padding, pad_top):
+    kernels.no_graph("filtergrad", x, g)
+    b, cin, h, w = x.shape
+    cout, ho, wo = g.shape[1:]
+    if ksize not in (1, 3, 5) or cout not in (1, 8):
+        raise ValueError(f"K5 takes k in (1, 3, 5) and cout in (1, 8); got k {ksize}, cout {cout}")
+    if x.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"K5 takes float32, got {x.dtype} and {g.dtype}")
+    x, g = x.contiguous(), g.contiguous()
+    lib = kernels.lib()
+    part = torch.empty((lib.nct_filtergrad_tiles(b, ho, wo), cout * cin * ksize * ksize),
+                       device=x.device)
+    out = torch.empty((cout, cin, ksize, ksize), device=x.device)
+    code = lib.nct_filtergrad(
+        x.data_ptr(), g.data_ptr(), b, cin, h, w, cout, ho, wo, ksize, pad_top,
+        padding, part.data_ptr(), out.data_ptr(), kernels.stream_of(out),
+    )
+    kernels.check(code, "filtergrad kernel")
+    kernels.LAUNCHES["filtergrad"] += 1
     return out

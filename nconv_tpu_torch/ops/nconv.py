@@ -11,7 +11,13 @@ layer op of the step-1 network: data and confidence given as parts (a
 logical channel concat), a part may be a half-resolution source read as a
 2x nearest upsample, an output crop, and the 2x2 max-pooled pair emitted
 alongside. On CUDA tensors it launches kernel K1 (``csrc/nconv.cu``); on
-CPU tensors it runs :func:`nconv2d_fused_plain`.
+CPU tensors it runs :func:`nconv2d_fused_plain`. K1 records no autograd
+graph.
+
+:func:`nconv2d_trainable` is the training form: single full-resolution
+tensors through an autograd Function whose forward is the fused op (K1 on
+the card) and whose backward is the JAX package's hand-written one, on the
+input-gradient conv (K2's K x K form) and the filter-grad kernel (K5).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .convops import conv2d_input_grad, conv2d_weight_grad
 from .pool import max_pool_pair
 from .resize import resize_nearest
 
@@ -128,8 +135,8 @@ def nconv2d_fused_plain(
     size = tuple(full.shape[2:])
     d = torch.cat([resize_nearest(p, size) if u else p for p, u in zip(d_parts, up2)], 1)
     c = torch.cat([resize_nearest(p, size) if u else p for p, u in zip(c_parts, up2)], 1)
-    out, conf = nconv2d(d.float(), c.float(), weight.float(), bias.float(),
-                        padding=padding, pos_fn="identity", eps=eps)
+    d, c, weight, bias = map(kernels.widen, (d, c, weight, bias))
+    out, conf = nconv2d(d, c, weight, bias, padding=padding, pos_fn="identity", eps=eps)
     if crop:
         out = out[:, :, crop:-crop, crop:-crop]
         conf = conf[:, :, crop:-crop, crop:-crop]
@@ -140,6 +147,7 @@ def nconv2d_fused_plain(
 
 def _nconv2d_kernel(d_parts, c_parts, weight, bias, padding, up2, crop,
                     pool_out, eps):
+    kernels.no_graph("nconv", *d_parts, *c_parts, weight, bias)
     b, h, w = _check_parts(d_parts, c_parts, up2)
     cout, cin, k, k2 = weight.shape
     for p, u in zip(d_parts + c_parts, up2 + up2):
@@ -182,6 +190,61 @@ def _nconv2d_kernel(d_parts, c_parts, weight, bias, padding, up2, crop,
     if pool_out:
         return out, conf, pout, pconf
     return out, conf
+
+
+class _NConvFunction(torch.autograd.Function):
+    """Normalized conv whose backward ports ``_nconv_bhcw_bwd``
+    (nconv_tpu/ops/pallas_nconv_mxu.py): it rebuilds ``denom`` and ``nomin``
+    from the saved outputs instead of rerunning the forward, takes the data
+    and confidence cotangents from one input-gradient conv of the
+    batch-stacked ``[d_nomin; d_denom]``, and the weight cotangent from one
+    filter-grad of ``[data * conf; conf]`` against it, plus the term of
+    ``conf_out = denom / sum(w)`` through ``sum(w)``. The elementwise terms
+    and the bias sum are plain torch ops."""
+
+    @staticmethod
+    def forward(ctx, data, conf, w, bias, padding, eps):
+        out, conf_out = nconv2d_fused([data], [conf], w, bias, padding=padding, eps=eps)
+        ctx.padding, ctx.eps = padding, eps
+        ctx.save_for_backward(data, conf, w, bias, out, conf_out)
+        return out, conf_out
+
+    @staticmethod
+    def backward(ctx, g_out, g_conf):
+        data, conf, w, bias, out, conf_out = ctx.saved_tensors
+        p, eps, n = ctx.padding, ctx.eps, data.shape[0]
+        ksum = w.sum(dim=(1, 2, 3))
+        kcol = ksum.view(1, -1, 1, 1)
+        denom = conf_out * kcol
+        nomin = (out - bias.view(1, -1, 1, 1)) * (denom + eps)
+        d_nomin = g_out / (denom + eps)
+        d_denom = -g_out * nomin / (denom + eps) ** 2 + g_conf / kcol
+        cot = torch.cat([d_nomin, d_denom], 0)
+        d_data = d_conf = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:  # not for the sparse input
+            d_stacked = conv2d_input_grad(cot, w, p)
+            d_dc, d_c_denom = d_stacked[:n], d_stacked[n:]
+            d_data = d_dc * conf
+            d_conf = d_dc * data + d_c_denom
+        d_w = conv2d_weight_grad(torch.cat([data * conf, conf], 0), cot, w.shape[-1], p)
+        d_ksum = -(g_conf * conf_out).sum(dim=(0, 2, 3)) / ksum
+        d_w = d_w + d_ksum.view(-1, 1, 1, 1)
+        return d_data, d_conf, d_w, g_out.sum(dim=(0, 2, 3)), None, None
+
+
+def nconv2d_trainable(
+    data: torch.Tensor,
+    conf: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    padding: int,
+    eps: float = EPS_DEFAULT,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable normalized conv, stride 1, of single full-resolution
+    f32 tensors (no parts, upsample, crop or pool). ``weight`` is the
+    already-positive kernel, so autograd carries the ``pos_fn`` VJP."""
+    return _NConvFunction.apply(data, conf, weight, bias, padding, eps)
 
 
 # ---------------------------------------------------------------------------

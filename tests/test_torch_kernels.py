@@ -112,3 +112,56 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):  # an upsampled part must be half the size
         ops.nconv2d_fused([x, x], [x, x], torch.rand(8, 8, 3, 3), torch.zeros(8),
                           padding=1, up2=[False, True])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p,cin,cout", [
+    (5, 2, 8, 8), (3, 1, 16, 8), (3, 0, 16, 8), (1, 2, 8, 1), (5, 2, 1, 8),
+])
+def test_gradient_kernels_match_plain_versions(card, k, p, cin, cout):
+    """K2's K x K form (input cotangent) and K5 (weight cotangent) at the
+    step-1 layer geometries, over several K5 tiles with ragged edges; K5
+    sums in a fixed order, so a repeat is bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(3)
+    h, w = 37, 150
+    ho, wo = h + 2 * p - k + 1, w + 2 * p - k + 1
+    cot = torch.randn(3, cout, ho, wo, generator=g, device=card)
+    wt = torch.rand(cout, cin, k, k, generator=g, device=card)
+    x = torch.randn(3, cin, h, w, generator=g, device=card)
+    kernels.reset_launch_counts()
+    assert _close(ops.conv2d_input_grad(cot, wt, p), ops.conv2d_input_grad_plain(cot, wt, p), 1e-5)
+    dw = ops.conv2d_weight_grad(x, cot, k, p)
+    assert _close(dw, ops.conv2d_weight_grad_plain(x, cot, k, p), 1e-5)
+    assert torch.equal(dw, ops.conv2d_weight_grad(x, cot, k, p))
+    counts = kernels.launch_counts()
+    assert (counts["conv_kxk"], counts["filtergrad"]) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(card):
+    """K1 records no graph: with grad enabled it raises instead of returning
+    an output without one; the trainable form reaches it inside its
+    autograd Function, and its backward runs on K2's K x K form and K5."""
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.rand(2, 8, 16, 24, generator=g, device=card)
+    w = torch.rand(8, 8, 3, 3, generator=g, device=card, requires_grad=True)
+    b = torch.zeros(8, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        ops.nconv2d_fused([x], [x], w, b, padding=1)
+    with torch.no_grad():
+        ops.nconv2d_fused([x], [x], w, b, padding=1)
+    kernels.reset_launch_counts()
+    out, conf = ops.nconv2d_trainable(x, x.requires_grad_(), w, b, padding=1)
+    (out.sum() + conf.sum()).backward()
+    assert w.grad is not None and x.grad is not None and b.grad is not None
+    counts = kernels.launch_counts()
+    assert (counts["nconv"], counts["conv_kxk"], counts["filtergrad"]) == (1, 1, 1)
+
+
+def test_no_graph_guard_raises_only_with_grad_enabled():
+    w = torch.zeros(1, requires_grad=True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        kernels.no_graph("k", w)
+    kernels.no_graph("k", w.detach(), None)
+    with torch.no_grad():
+        kernels.no_graph("k", w)

@@ -85,10 +85,13 @@ def test_unguided_matches_jax(b, hw):
     want = jax.jit(jm.apply)(v, jnp.asarray(d))
     m = NConvUNet(device="cpu")
     m.load_state_dict(from_jax_unguided_variables(v))
-    got = m(torch.from_numpy(d))
-    for g, w in zip(got, want):
-        assert g.shape == w.shape
-        assert rel(g.numpy(), w) <= 1e-5
+    with torch.no_grad():
+        fused = m(torch.from_numpy(d))  # the serving graph
+    trainable = m(torch.from_numpy(d))  # grad enabled: the training graph
+    for got in (fused, trainable):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert rel(g.detach().numpy(), w) <= 1e-5
 
 
 def test_unguided_rejects_sizes_off_the_pyramid():
