@@ -28,6 +28,17 @@ Phases (any failure raises and the script exits non-zero):
      its f32 rounding is measured, not assumed); (c) five steps of
      ``Trainer.fit`` on one batch, loss finite and falling; (d) the launch
      counts per train step; (e) train-step p50 / p90 from CUDA events.
+  5. guided (step-2) training: ``Trainer(GuidedTask(GuidedDepthNet(),
+     step1_state=...))`` at full width on KITTI 352x1216, batch 1, f32,
+     adamw 1e-3 / wd 1e-7, train-mode BN, step 1 frozen (the phase-4 model's
+     initial state), on the JAX bench's synthetic guided batch. (a) every
+     kernel call of one train step against its plain version, at each
+     distinct shape (the new forms: K3's 3x3/s2, K2's 4x4/s2 and K6); (b)
+     one train step on the kernel path against the plain path, and the
+     gradients against the plain path in float64, and the new BN running
+     statistics; (c) five steps of ``Trainer.fit`` on one batch, loss finite
+     and falling, step 1 bitwise unchanged; (d) the launch counts per train
+     step; (e) train-step p50 / p90 from CUDA events.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``; every checked call's numbers go
@@ -61,6 +72,18 @@ PER_FRAME = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
 # gradient, so 8 input-gradient convs
 PER_TRAIN_STEP = {"nconv": 9, "conv_kxk": 8, "filtergrad": 9}
 TRAIN_B, TRAIN_FIT_STEPS, TRAIN_TIMED_STEPS = 4, 5, 20
+# guided training, per step: the frozen step 1's fused forward (9 K1); 28
+# stride-1 convs and 3 stride-2 encoder pairs (K2), 3 transpose convs (K3);
+# backward: 23 stride-1 input gradients (none for the RGB input and the 4
+# depth_convs, whose inputs come from the frozen step 1), 3 stride-2 and 3
+# transpose-conv input gradients, and 28 + 3 + 3 weight gradients (K6, one
+# launch over all parts of a concat). An evaluation (no grad, eval-mode BN)
+# runs the unfolded serving forward.
+PER_GUIDED_STEP = {"nconv": 9, "conv": 31, "conv_transpose": 3, "conv_kxk": 23,
+                   "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34}
+PER_GUIDED_EVAL = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
+GUIDED_B = 1
+STATS_BAR = 1e-5  # BN running statistics after a step, kernel path vs plain path
 LOSS_BAR, GRAD_BAR = 1e-6, 1e-4  # train step, kernel path vs plain path
 # a gradient whose f32 rounding (plain f32 vs plain f64) exceeds GRAD_BAR is
 # held to GRAD_NOISE x that rounding instead
@@ -72,8 +95,12 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "conv_chain": ("nconv_tpu_torch/csrc/chain.cu", "nconv_tpu/ops/pallas_chain.py:169"),
     "conv_kxk": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "filtergrad": ("nconv_tpu_torch/csrc/filtergrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
+    "conv_transpose3x3s2": ("nconv_tpu_torch/csrc/convt.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "conv4x4s2": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "wgrad": ("nconv_tpu_torch/csrc/wgrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
 }
-TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per train step; K1 per frame
+TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
+GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per guided train step
 
 
 def log(*a):
@@ -128,6 +155,7 @@ class Recorder:
             "nc": nconv._nconv2d_kernel, "cv": convops._conv3x3_kernel,
             "ct": convops._conv_transpose_kernel, "ch": convops._chain_kernel,
             "kx": convops._conv_kxk_kernel, "fg": convops._filtergrad_kernel,
+            "t3": convops._conv_transpose3x3s2_kernel, "wg": convops._wgrad_kernel,
         }
 
         def nc(d, c, w, b, padding, up2, crop, pool_out, eps):
@@ -147,20 +175,30 @@ class Recorder:
             self.note(("conv_chain", _sig(x), _sig(w1), _sig(w2)))
             return real["ch"](x, w1, b1, w2, b2)
 
-        def kx(x, w, padding):
-            self.note(("conv_kxk", _sig(x), _sig(w), padding))
-            return real["kx"](x, w, padding)
+        def kx(x, w, padding, stride):
+            self.note(("conv_kxk" if stride == 1 else "conv4x4s2", _sig(x), _sig(w), padding, stride))
+            return real["kx"](x, w, padding, stride)
 
         def fg(x, g, ksize, padding, pad_top):
             self.note(("filtergrad", _sig(x), _sig(g), ksize, padding, pad_top))
             return real["fg"](x, g, ksize, padding, pad_top)
+
+        def t3(x, w):
+            self.note(("conv_transpose3x3s2", _sig(x), _sig(w)))
+            return real["t3"](x, w)
+
+        def wg(xs, gs, ksize, stride, padding):
+            self.note(("wgrad", tuple(map(_sig, xs)), tuple(map(_sig, gs)), ksize, stride, padding))
+            return real["wg"](xs, gs, ksize, stride, padding)
 
         with mock.patch.object(nconv, "_nconv2d_kernel", nc), \
                 mock.patch.object(convops, "_conv3x3_kernel", cv), \
                 mock.patch.object(convops, "_conv_transpose_kernel", ct), \
                 mock.patch.object(convops, "_chain_kernel", ch), \
                 mock.patch.object(convops, "_conv_kxk_kernel", kx), \
-                mock.patch.object(convops, "_filtergrad_kernel", fg):
+                mock.patch.object(convops, "_filtergrad_kernel", fg), \
+                mock.patch.object(convops, "_conv_transpose3x3s2_kernel", t3), \
+                mock.patch.object(convops, "_wgrad_kernel", wg):
             yield
 
 
@@ -244,21 +282,47 @@ def check_call(key, g):
         library = lambda: F.conv_transpose2d(xl, wl, bl, stride=2, padding=1)
         macs_per_out = wsig[0][0] * 4
         inputs = parts + [w, b]
-    elif kind == "conv_kxk":
-        _, xsig, wsig, padding = key
+    elif kind in ("conv_kxk", "conv4x4s2"):
+        _, xsig, wsig, padding, stride = key
         x = _rand(xsig, g)
         cout, cin, k, _ = wsig[0]
         w = _rand(wsig, g, scale=(cin * k * k) ** -0.5)
-        kern = lambda: convops._conv_kxk_kernel(x, w, padding)
-        plain = lambda: convops.conv2d(x, w, padding=padding)
-        # the same function as the input cotangent of the forward conv whose
-        # flipped, in/out-transposed kernel w is: one library call
-        w_fwd = w.flip(2, 3).transpose(0, 1)
-        out_shape = (x.shape[0], cout, x.shape[2] + 2 * padding - k + 1, x.shape[3] + 2 * padding - k + 1)
-        library = lambda: torch.nn.grad.conv2d_input(out_shape, w_fwd, x, padding=k - 1 - padding)
+        kern = lambda: convops._conv_kxk_kernel(x, w, padding, stride)
+        plain = lambda: convops.conv2d(x, w, stride=stride, padding=padding)
+        if stride == 1:
+            # the same function as the input cotangent of the forward conv whose
+            # flipped, in/out-transposed kernel w is: one library call
+            w_fwd = w.flip(2, 3).transpose(0, 1)
+            out_shape = (x.shape[0], cout, x.shape[2] + 2 * padding - k + 1, x.shape[3] + 2 * padding - k + 1)
+            library = lambda: torch.nn.grad.conv2d_input(out_shape, w_fwd, x, padding=k - 1 - padding)
+        else:
+            library = lambda: F.conv2d(x, w, stride=stride, padding=padding)
         out_dt = "float32"
         macs_per_out = cin * k * k
         inputs = [x, w]
+    elif kind == "conv_transpose3x3s2":
+        _, xsig, wsig = key
+        x = _rand(xsig, g)
+        cin = wsig[0][0]
+        w = _rand(wsig, g, scale=(9 * cin) ** -0.5)
+        kern = lambda: convops._conv_transpose3x3s2_kernel(x, w)
+        plain = lambda: convops.conv3x3s2_input_grad_plain(x, w)
+        library = lambda: F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1)
+        out_dt = "float32"
+        macs_per_out = cin * 9 / 4  # each input pixel's 9 taps feed a 2x2 output quad
+        inputs = [x, w]
+    elif kind == "wgrad":
+        _, xsigs, gsigs, k, stride, padding = key
+        xs, gs = [_rand(s, g) for s in xsigs], [_rand(s, g) for s in gsigs]
+        kern = lambda: convops._wgrad_kernel(xs, gs, k, stride, padding)
+        plain = lambda: convops.conv2d_weight_grad_plain(xs, gs, k, padding, stride=stride)
+        xl, gl = torch.cat(xs, 1), torch.cat(gs, 1)
+        w_shape = (gl.shape[1], xl.shape[1], k, k)
+        library = lambda: torch.nn.grad.conv2d_weight(xl, w_shape, gl, stride=stride, padding=padding)
+        out_dt = "float32"
+        b_, _, ho, wo = gl.shape
+        macs_per_out = b_ * ho * wo  # each weight-cotangent entry sums B*Ho*Wo products
+        inputs = xs + gs
     elif kind == "filtergrad":
         _, xsig, gsig, k, padding, pad_top = key
         x, gr = _rand(xsig, g), _rand(gsig, g)
@@ -402,6 +466,101 @@ def step_grads(batch, dtype, cfg, *, plain):
     return loss.item(), {n: p.grad.double() for n, p in model.named_parameters()}
 
 
+def check_all(calls, g, label):
+    """``check_call`` on every recorded call; raises if any kernel disagrees
+    with its plain version. Returns {key: result}."""
+    results, failures = {}, []
+    for key, count in calls.items():
+        res = check_call(key, g)
+        res["count"] = count
+        results[key] = res
+        ok = res["err"] <= res["bar"]
+        log(f"[{'ok' if ok else 'FAIL'}] {key[0]:<19} {label} out {res['shape'][0]} x{count} "
+            f"rel_rmse {res['err']:.2e} (bar {res['bar']:.0e}) max_abs {res['abs_err']:.2e} "
+            f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
+            f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
+            f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+        if not ok:
+            failures.append((key, res["err"]))
+    if failures:
+        raise SystemExit(f"chip_smoke: {label} kernels disagree with their plain versions: {failures}")
+    return results
+
+
+def step_sums(calls, results, kinds):
+    """Per kernel kind: the sum over one step's calls of each time."""
+    sums = {}
+    for kname in kinds:
+        mine = [(k, v) for k, v in results.items() if k[0] == kname]
+        sums[kname] = {f: sum(v[f] * calls[k] for k, v in mine) for f in ("ms", "plain_ms", "bound_ms")}
+        libs = [v["library_ms"] for _, v in mine]
+        sums[kname]["library_ms"] = None if None in libs else sum(v["library_ms"] * calls[k] for k, v in mine)
+    log("per train step: " + "; ".join(
+        f"{k} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} lib {v['library_ms']} bound {v['bound_ms']:.4f}"
+        for k, v in sums.items()))
+    return sums
+
+
+def grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, label):
+    """Kernel path vs plain path: the loss within LOSS_BAR and each gradient
+    within max(GRAD_BAR, GRAD_NOISE x the plain f32 path's own error against
+    the plain f64 path). Raises on a miss; returns the per-gradient numbers."""
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    checks, missed = {}, []
+    for name in grads_p:
+        vs_plain = rel_rmse(grads_k[name], grads_p[name])
+        rounding = rel_rmse(grads_p[name], grads_64[name])  # the f32 plain path's own error
+        bar = max(GRAD_BAR, GRAD_NOISE * rounding)
+        checks[name] = dict(vs_plain=vs_plain, kernel_vs_f64=rel_rmse(grads_k[name], grads_64[name]),
+                            plain_vs_f64=rounding, bar=bar)
+        if vs_plain > bar:
+            missed.append((name, vs_plain, bar))
+    log(f"[{'FAIL' if missed or loss_err > LOSS_BAR else 'ok'}] {label} train step kernel vs plain: "
+        f"loss {loss_k:.6f} rel {loss_err:.2e} (bar {LOSS_BAR:.0e}; f64 loss {loss_64:.6f})")
+    for name, c in checks.items():
+        log(f"    grad {name:<36} vs plain {c['vs_plain']:.2e} (bar {c['bar']:.1e})  "
+            f"kernel vs f64 {c['kernel_vs_f64']:.2e}  plain f32 vs f64 {c['plain_vs_f64']:.2e}")
+    if loss_err > LOSS_BAR or missed:
+        raise SystemExit(f"chip_smoke: {label} train step kernel path vs plain path: loss {loss_err:.2e}, "
+                         f"grads {missed}")
+    return loss_err, checks
+
+
+def timed_steps(trainer, batch, per_step, label):
+    """(d) and (e): TRAIN_TIMED_STEPS train steps on the kernel path, then on
+    the plain path, each between CUDA events; the kernel path must launch
+    ``per_step`` per step. Returns {path: {p50_ms, p90_ms}}."""
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch import kernels
+
+    times = {}
+    for path in ("kernel", "plain"):
+        with plain_versions() if path == "plain" else contextlib.nullcontext():
+            for _ in range(3):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            ts = []
+            for _ in range(TRAIN_TIMED_STEPS):
+                s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s_.record()
+                trainer.train_step(batch)
+                e_.record()
+                e_.synchronize()
+                ts.append(s_.elapsed_time(e_))
+            counts = kernels.launch_counts()
+        times[path] = dict(p50_ms=float(np.percentile(ts, 50)), p90_ms=float(np.percentile(ts, 90)))
+        if path == "kernel" and any(counts[k] != v * TRAIN_TIMED_STEPS for k, v in per_step.items()):
+            raise SystemExit(f"chip_smoke: {label}: {TRAIN_TIMED_STEPS} train steps launched {counts}, "
+                             f"expected {per_step} each")
+    log(f"[ok] {label} train step: p50 {times['kernel']['p50_ms']:.3f} ms "
+        f"p90 {times['kernel']['p90_ms']:.3f} ms; plain path p50 {times['plain']['p50_ms']:.3f} ms "
+        f"p90 {times['plain']['p90_ms']:.3f} ms; launches per step {per_step}")
+    return times
+
+
 def train_phase(g):
     """Phase 4; returns (per-call results, distinct calls of one train step
     with their counts, launch counts of the fit, summary)."""
@@ -422,52 +581,14 @@ def train_phase(g):
     r = Recorder()
     with r.recording():
         step_grads(batch, torch.float32, cfg, plain=False)
-    results, failures = {}, []
-    for key, count in r.calls.items():
-        res = check_call(key, g)
-        res["count"] = count
-        results[key] = res
-        ok = res["err"] <= res["bar"]
-        log(f"[{'ok' if ok else 'FAIL'}] {key[0]:<15} train out {res['shape'][0]} x{count} "
-            f"rel_rmse {res['err']:.2e} (bar {res['bar']:.0e}) max_abs {res['abs_err']:.2e} "
-            f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
-            f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
-            f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
-        if not ok:
-            failures.append((key, res["err"]))
-    if failures:
-        raise SystemExit(f"chip_smoke: training kernels disagree with their plain versions: {failures}")
-    step_sums = {}
-    for kname in PER_TRAIN_STEP:
-        calls = [(k, v) for k, v in results.items() if k[0] == kname]
-        step_sums[kname] = {f: sum(v[f] * r.calls[k] for k, v in calls) for f in ("ms", "plain_ms", "bound_ms")}
-        libs = [v["library_ms"] for _, v in calls]
-        step_sums[kname]["library_ms"] = None if None in libs else sum(v["library_ms"] * r.calls[k] for k, v in calls)
-    log("per train step: " + "; ".join(
-        f"{k} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} lib {v['library_ms']} bound {v['bound_ms']:.4f}"
-        for k, v in step_sums.items()))
+    results = check_all(r.calls, g, "train")
+    sums = step_sums(r.calls, results, PER_TRAIN_STEP)
 
     # (b) one train step: kernel path and plain path in f32, plain path in f64
     loss_k, grads_k = step_grads(batch, torch.float32, cfg, plain=False)
     loss_p, grads_p = step_grads(batch, torch.float32, cfg, plain=True)
     loss_64, grads_64 = step_grads(batch, torch.float64, cfg, plain=True)
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    grad_checks, missed = {}, []
-    for name in grads_p:
-        vs_plain = rel_rmse(grads_k[name], grads_p[name])
-        rounding = rel_rmse(grads_p[name], grads_64[name])  # the f32 plain path's own error
-        bar = max(GRAD_BAR, GRAD_NOISE * rounding)
-        grad_checks[name] = dict(vs_plain=vs_plain, kernel_vs_f64=rel_rmse(grads_k[name], grads_64[name]),
-                                 plain_vs_f64=rounding, bar=bar)
-        if vs_plain > bar:
-            missed.append((name, vs_plain, bar))
-    log(f"[{'FAIL' if missed or loss_err > LOSS_BAR else 'ok'}] train step kernel vs plain: loss {loss_k:.6f} "
-        f"rel {loss_err:.2e} (bar {LOSS_BAR:.0e}; f64 loss {loss_64:.6f})")
-    for name, c in grad_checks.items():
-        log(f"    grad {name:<20} vs plain {c['vs_plain']:.2e} (bar {c['bar']:.1e})  "
-            f"kernel vs f64 {c['kernel_vs_f64']:.2e}  plain f32 vs f64 {c['plain_vs_f64']:.2e}")
-    if loss_err > LOSS_BAR or missed:
-        raise SystemExit(f"chip_smoke: train step kernel path vs plain path: loss {loss_err:.2e}, grads {missed}")
+    loss_err, checks = grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, "step-1")
 
     # (c) five adamw steps through Trainer.fit on the one batch
     trainer = Trainer(UnguidedTask(NConvUNet(device="cuda", seed=0)), cfg, log_fn=lambda m: None)
@@ -487,32 +608,102 @@ def train_phase(g):
         raise SystemExit(f"chip_smoke: Trainer.fit launched {fit_counts}, expected {want}")
 
     # (d) launches per train step and (e) its time, kernel path then plain path
-    times = {}
-    for path in ("kernel", "plain"):
-        with plain_versions() if path == "plain" else contextlib.nullcontext():
-            for _ in range(3):
-                trainer.train_step(batch)
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            ts = []
-            for _ in range(TRAIN_TIMED_STEPS):
-                s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                s_.record()
-                trainer.train_step(batch)
-                e_.record()
-                e_.synchronize()
-                ts.append(s_.elapsed_time(e_))
-            counts = kernels.launch_counts()
-        times[path] = dict(p50_ms=float(np.percentile(ts, 50)), p90_ms=float(np.percentile(ts, 90)))
-        if path == "kernel" and any(counts[k] != v * TRAIN_TIMED_STEPS for k, v in PER_TRAIN_STEP.items()):
-            raise SystemExit(f"chip_smoke: {TRAIN_TIMED_STEPS} train steps launched {counts}, "
-                             f"expected {PER_TRAIN_STEP} each")
-    log(f"[ok] train step (B={TRAIN_B}, {H}x{W}, f32, adamw): p50 {times['kernel']['p50_ms']:.3f} ms "
-        f"p90 {times['kernel']['p90_ms']:.3f} ms; plain path p50 {times['plain']['p50_ms']:.3f} ms "
-        f"p90 {times['plain']['p90_ms']:.3f} ms; launches per step {PER_TRAIN_STEP}")
+    times = timed_steps(trainer, batch, PER_TRAIN_STEP, f"step-1 (B={TRAIN_B}, {H}x{W}, f32, adamw)")
     per_step = {k: c for k, c in r.calls.items() if k[0] in TRAIN_KERNELS}
-    summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=grad_checks,
-                   fit_losses=losses, fit_counts=fit_counts, step_ms=times, kernel_sums_per_step=step_sums)
+    summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=checks,
+                   fit_losses=losses, fit_counts=fit_counts, step_ms=times, kernel_sums_per_step=sums)
+    return results, per_step, fit_counts, summary
+
+
+# ---------------------------------------------------------------------------
+# Guided (step-2) training
+# ---------------------------------------------------------------------------
+
+def guided_step(batch, dtype, cfg, state, step1_state, *, plain):
+    """Loss, trainable gradients and new BN running statistics of one guided
+    train step from ``state`` on the card, in ``dtype``, on the kernel path
+    or the plain path."""
+    import torch
+
+    from nconv_tpu_torch.models import GuidedDepthNet
+    from nconv_tpu_torch.training import GuidedTask
+
+    model = GuidedDepthNet(device="cuda", dtype=dtype).to(dtype)
+    model.load_state_dict(state)
+    task = GuidedTask(model.train(), step1_state=step1_state)
+    b = {k: v.to(dtype) for k, v in batch.items()}
+    with plain_versions() if plain else contextlib.nullcontext():
+        loss = task.loss(b, cfg=cfg)
+        loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.double() for n, p in model.named_parameters() if p.requires_grad}
+    return loss.item(), grads, {n: t.double() for n, t in model.named_buffers()}
+
+
+def guided_phase(g):
+    """Phase 5; returns (per-call results, distinct calls of one train step
+    with their counts, launch counts of the fit, summary)."""
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch import kernels
+    from nconv_tpu_torch.data import bench_batch
+    from nconv_tpu_torch.models import GuidedDepthNet, NConvUNet
+    from nconv_tpu_torch.training import GuidedTask, OptimizerConfig, TrainConfig, Trainer
+
+    batch_np = bench_batch(GUIDED_B, H, W)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    cfg = TrainConfig(epochs=TRAIN_FIT_STEPS, batch_size=GUIDED_B, log_every=0,
+                      optimizer=OptimizerConfig("adamw", 1e-3, 1e-7))
+    step1_state = NConvUNet(device="cuda", seed=0).state_dict()  # phase 4's initial state
+    state = GuidedDepthNet(device="cuda", seed=0).state_dict()
+
+    # (a) every kernel call of one train step, at each distinct shape
+    r = Recorder()
+    with r.recording():
+        guided_step(batch, torch.float32, cfg, state, step1_state, plain=False)
+    results = check_all(r.calls, g, "guided")
+    sums = step_sums(r.calls, results, PER_GUIDED_STEP)
+
+    # (b) one train step: kernel path and plain path in f32, plain path in f64
+    loss_k, grads_k, stats_k = guided_step(batch, torch.float32, cfg, state, step1_state, plain=False)
+    loss_p, grads_p, stats_p = guided_step(batch, torch.float32, cfg, state, step1_state, plain=True)
+    loss_64, grads_64, _ = guided_step(batch, torch.float64, cfg, state, step1_state, plain=True)
+    loss_err, checks = grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, "guided")
+    stats_err = {n: rel_rmse(stats_k[n], stats_p[n]) for n in stats_p if not n.startswith("step1.")}
+    worst = max(stats_err, key=stats_err.get)
+    log(f"[{'ok' if stats_err[worst] <= STATS_BAR else 'FAIL'}] guided BN running statistics kernel vs plain: "
+        f"worst {worst} {stats_err[worst]:.2e} (bar {STATS_BAR:.0e})")
+    if stats_err[worst] > STATS_BAR:
+        raise SystemExit(f"chip_smoke: guided running statistics: {worst} {stats_err[worst]:.2e}")
+
+    # (c) five adamw steps through Trainer.fit on the one batch
+    model = GuidedDepthNet(device="cuda")
+    model.load_state_dict(state)
+    trainer = Trainer(GuidedTask(model, step1_state=step1_state), cfg, log_fn=lambda m: None)
+    kernels.reset_launch_counts()
+    fit = trainer.fit(lambda: [batch_np], lambda: [batch_np])
+    torch.cuda.synchronize()
+    fit_counts = kernels.launch_counts()
+    losses = fit.history["train_loss"]
+    want = {k: (PER_GUIDED_STEP.get(k, 0) + PER_GUIDED_EVAL.get(k, 0)) * TRAIN_FIT_STEPS for k in kernels.LAUNCHES}
+    falling = bool(np.all(np.isfinite(losses + fit.history["val_loss"])) and losses[-1] < losses[0])
+    frozen = all(torch.equal(v, model.step1.state_dict()[k]) for k, v in step1_state.items())
+    log(f"[{'ok' if falling and frozen else 'FAIL'}] guided Trainer.fit {TRAIN_FIT_STEPS} adamw steps, "
+        f"B={GUIDED_B} {H}x{W}: train losses {[round(v, 6) for v in losses]}, val losses "
+        f"{[round(v, 6) for v in fit.history['val_loss']]}; step 1 bitwise unchanged {frozen}; "
+        f"launches {fit_counts}")
+    if not falling or not frozen:
+        raise SystemExit(f"chip_smoke: guided training: losses {losses}, step 1 unchanged {frozen}")
+    if fit_counts != want:
+        raise SystemExit(f"chip_smoke: guided Trainer.fit launched {fit_counts}, expected {want}")
+
+    # (d) launches per train step and (e) its time, kernel path then plain path
+    times = timed_steps(trainer, batch, PER_GUIDED_STEP, f"guided (B={GUIDED_B}, {H}x{W}, f32, adamw)")
+    per_step = {k: c for k, c in r.calls.items() if k[0] in GUIDED_KERNELS}
+    summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=checks, stats=stats_err,
+                   fit_losses=losses, fit_val_losses=fit.history["val_loss"], fit_counts=fit_counts,
+                   step_ms=times, kernel_sums_per_step=sums)
     return results, per_step, fit_counts, summary
 
 
@@ -625,18 +816,25 @@ def main() -> int:
     # -- 4. step-1 training
     train_results, train_calls, train_counts, train_summary = train_phase(g)
 
+    # -- 5. guided (step-2) training
+    guided_results, guided_calls, guided_counts, guided_summary = guided_phase(g)
+
     # -- report: one entry per kernel; sums per two-stream frame over the
-    # mixed main path for the serving kernels, per train step for the
-    # training kernels (launches: the serving run's, and the fit's)
+    # mixed main path for the serving kernels, per step-1 train step for
+    # K2's K x K form and K5, per guided train step for the guided backward
+    # forms (launches: the serving run's, and each fit's)
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke_calls.json").write_text(json.dumps(
-        {"card": smi, "engines": summary, "training": train_summary,
-         "calls": [{"key": repr(k), **v} for k, v in {**results, **train_results}.items()]}, indent=1))
+        {"card": smi, "engines": summary, "training": train_summary, "guided_training": guided_summary,
+         "calls": [{"key": repr(k), **v} for k, v in {**results, **train_results, **guided_results}.items()]},
+        indent=1))
     entries = []
     for kname, (src, replaces) in KERNELS.items():
         if kname in TRAIN_KERNELS:
             per, res, launches = train_calls, train_results, train_counts[kname]
+        elif kname in GUIDED_KERNELS:
+            per, res, launches = guided_calls, guided_results, guided_counts[kname]
         else:
             per, res, launches = rec["mixed"], results, main_counts[kname]
         calls = [(k, r) for k, r in res.items() if k in per and k[0] == kname]

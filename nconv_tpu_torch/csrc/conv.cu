@@ -1,8 +1,8 @@
 // K2: direct 3x3 pad-1 convolution, stride 1 or 2, + bias + optional ReLU,
 // with an optional fused residual epilogue relu(conv3x3(x) + b) + conv1x1(x)
 // (the 1x1 shortcut at the same stride reads the 3x3 window's centre tap);
-// and a K x K stride-1 f32 form without bias for the training backward
-// (below, nct_conv_kxk).
+// and a K x K f32 form without bias for the training backward (below,
+// nct_conv_kxk): K in {1, 3, 5} at stride 1, and 4x4 at stride 2.
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel in its stride-1,
 // residual_channels, multi-part, uint8-decode and stride-2 (lane_stride2 /
@@ -135,14 +135,20 @@ static int dispatch_stride(const ConvArgs& a, int stride, bool res,
 }
 
 // ---------------------------------------------------------------------------
-// K x K stride-1 form, f32 in and out, no bias and no ReLU, pad in [0, K-1]:
-// the input-gradient conv of the training backward (the cotangent against
-// the flipped, in/out-transposed kernel), which the TPU ran on the same
-// _kernel through transpose_conv_bhcw (pallas_conv.py:797). K is a template
-// parameter, so the tap loops stay unrolled. Same staging as the 3x3 form:
-// an input tile of K_CIC channels with its halo and the matching weights in
-// shared memory, COT output channels of one pixel per thread in registers.
-// The input is one part read through its strides, so a crop is a view.
+// K x K form, f32 in and out, no bias and no ReLU, pad in [0, K-1], stride S:
+//  * stride 1, K in {1, 3, 5}: the input-gradient conv of a stride-1 conv
+//    (the cotangent against the flipped, in/out-transposed kernel), which
+//    the TPU ran on the same _kernel through transpose_conv_bhcw
+//    (pallas_conv.py:797);
+//  * stride 2, K = 4, pad 1: the input gradient of the 4x4/s2/p1 transpose
+//    conv, a plain strided conv of its output cotangent with the transpose
+//    conv's (cin, cout, 4, 4) weight read as OIHW (no flip), which the TPU
+//    ran as a row-pair lane_stride2 conv (pallas_s2.py:_ct_bwd, :228-248).
+// K and S are template parameters, so the tap loops stay unrolled. Same
+// staging as the 3x3 form: an input tile of K_CIC channels with its halo and
+// the matching weights in shared memory, COT output channels of one pixel
+// per thread in registers. The input is one part read through its strides,
+// so a crop is a view.
 // ---------------------------------------------------------------------------
 
 constexpr int K_TW = 32, K_TH = 4, K_CIC = 8, K_THREADS = K_TW * K_TH;
@@ -154,9 +160,9 @@ struct ConvKArgs {
   float* out;      // (B, cout, ho, wo), contiguous
 };
 
-template <int K, int COT>
+template <int K, int S, int COT>
 __global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
-  constexpr int IW = K_TW + K - 1, IH = K_TH + K - 1;
+  constexpr int IW = (K_TW - 1) * S + K, IH = (K_TH - 1) * S + K;
   __shared__ float xs[K_CIC][IH][IW];
   __shared__ __align__(16) float ws[K_CIC * K * K][COT];
 
@@ -164,7 +170,7 @@ __global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
   const int b = blockIdx.z / groups, co0 = (blockIdx.z % groups) * COT;
   const int tx = threadIdx.x % K_TW, ty = threadIdx.x / K_TW;
   const int ox = blockIdx.x * K_TW + tx, oy = blockIdx.y * K_TH + ty;
-  const int ix0 = blockIdx.x * K_TW - a.pad, iy0 = blockIdx.y * K_TH - a.pad;
+  const int ix0 = blockIdx.x * K_TW * S - a.pad, iy0 = blockIdx.y * K_TH * S - a.pad;
 
   float acc[COT];
 #pragma unroll
@@ -193,7 +199,7 @@ __global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
       for (int ky = 0; ky < K; ++ky) {
 #pragma unroll
         for (int kx = 0; kx < K; ++kx) {
-          const float v = xs[cc][ty + ky][tx + kx];
+          const float v = xs[cc][ty * S + ky][tx * S + kx];
           const float* wk = ws[(cc * K + ky) * K + kx];
 #pragma unroll
           for (int j = 0; j < COT; ++j) acc[j] = fmaf(v, wk[j], acc[j]);
@@ -211,18 +217,18 @@ __global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
   }
 }
 
-template <int K, int COT>
+template <int K, int S, int COT>
 static int launch_kxk(const ConvKArgs& a, cudaStream_t st) {
   const dim3 grid((a.wo + K_TW - 1) / K_TW, (a.ho + K_TH - 1) / K_TH,
                   a.B * ((a.cout + COT - 1) / COT));
-  void (*k)(const ConvKArgs) = convkxk_kernel<K, COT>;
+  void (*k)(const ConvKArgs) = convkxk_kernel<K, S, COT>;
   NCT_LAUNCH(k, grid, dim3(K_THREADS), 0, st, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int K>
+template <int K, int S>
 static int dispatch_kxk(const ConvKArgs& a, cudaStream_t st) {
-  return a.cout >= 16 ? launch_kxk<K, 16>(a, st) : launch_kxk<K, 8>(a, st);
+  return a.cout >= 16 ? launch_kxk<K, S, 16>(a, st) : launch_kxk<K, S, 8>(a, st);
 }
 
 }  // namespace nct
@@ -261,26 +267,33 @@ extern "C" int nct_conv3x3(const void* const* part_ptrs,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Plain C entry of the K x K stride-1 f32 form: one input part (pointer +
-// 6 metadata values, see nct::fill_parts), ksize in {1, 3, 5}, pad in
-// [0, ksize - 1], output (ho, wo) = (H, W) + 2 pad - ksize + 1.
+// Plain C entry of the K x K f32 form: one input part (pointer + 6 metadata
+// values, see nct::fill_parts), (ksize, stride) in {1, 3, 5} x {1} or
+// (4, 2), pad in [0, ksize - 1], output (ho, wo) = ((H, W) + 2 pad - ksize)
+// / stride + 1.
 extern "C" int nct_conv_kxk(const void* const* x_ptr, const long long* x_meta,
                             int B, int H, int W, int cin, int ho, int wo,
-                            int cout, int ksize, int pad, const float* w,
-                            float* out, void* stream) {
+                            int cout, int ksize, int stride, int pad,
+                            const float* w, float* out, void* stream) {
   using namespace nct;
-  if (pad < 0 || pad > ksize - 1 || ho != H + 2 * pad - ksize + 1 ||
-      wo != W + 2 * pad - ksize + 1)
+  if (pad < 0 || pad > ksize - 1 || stride < 1 ||
+      H + 2 * pad < ksize || W + 2 * pad < ksize ||
+      ho != (H + 2 * pad - ksize) / stride + 1 ||
+      wo != (W + 2 * pad - ksize) / stride + 1)
     return static_cast<int>(cudaErrorInvalidValue);
   ConvKArgs a{};
   fill_parts(&a.x, x_ptr, x_meta, 1);
   a.B = B, a.H = H, a.W = W, a.cin = cin, a.ho = ho, a.wo = wo;
   a.cout = cout, a.pad = pad, a.w = w, a.out = out;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (ksize) {
-    case 1: return dispatch_kxk<1>(a, st);
-    case 3: return dispatch_kxk<3>(a, st);
-    case 5: return dispatch_kxk<5>(a, st);
+  if (stride == 1) {
+    switch (ksize) {
+      case 1: return dispatch_kxk<1, 1>(a, st);
+      case 3: return dispatch_kxk<3, 1>(a, st);
+      case 5: return dispatch_kxk<5, 1>(a, st);
+    }
+  } else if (stride == 2 && ksize == 4) {
+    return dispatch_kxk<4, 2>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,13 +25,14 @@ class SyntheticDataset:
 
 
 def bench_batch(b: int, height: int, width: int, seed: int = 0) -> dict:
-    """The step-1 part of the JAX bench's synthetic training batch
-    (``nconv_tpu/cli.py``, ``_bench_train``), NHWC numpy: smooth depth
+    """The JAX bench's synthetic training batch (``nconv_tpu/cli.py``,
+    ``_bench_train``), NHWC numpy: uniform [0, 1) RGB, smooth depth
     2 + sin(i/40) + cos(j/60) under a 6% Bernoulli mask, and its dense
     ground truth."""
     rng = np.random.default_rng(seed)
     truth = np.fromfunction(
         lambda n, i, j, c: 2 + np.sin(i / 40) + np.cos(j / 60), (b, height, width, 1)
     ).astype(np.float32)
-    rng.random((b, height, width, 3))  # the batch's RGB: drawn first, as the bench draws it
-    return {"depth": (truth * (rng.random((b, height, width, 1)) < 0.06)).astype(np.float32), "gt": truth}
+    rgb = rng.random((b, height, width, 3)).astype(np.float32)  # drawn first, as the bench draws it
+    return {"rgb": rgb, "depth": (truth * (rng.random((b, height, width, 1)) < 0.06)).astype(np.float32),
+            "gt": truth}

@@ -36,6 +36,7 @@ NVCC_FLAGS = [
 LAUNCHES: dict[str, int] = {
     "nconv": 0, "conv": 0, "conv_transpose": 0, "conv_chain": 0,
     "conv_kxk": 0, "filtergrad": 0,
+    "conv4x4s2": 0, "conv_transpose3x3s2": 0, "wgrad": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -45,14 +46,18 @@ build_seconds: float | None = None  # wall time of this process's build, if it b
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all return int: cudaGetLastError(), or for
-    # nct_filtergrad_tiles the row count of K5's partial-sum buffer)
+    # nct_filtergrad_tiles / nct_wgrad_slices the row count of K5's / K6's
+    # partial-sum buffer)
     "nct_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, P],
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
     "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
     "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
-    "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, P, P, P],
+    "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad_tiles": [I, I, I],
+    "nct_conv_transpose3x3s2": [P, P, I, I, I, I, I, P, P, P],
+    "nct_wgrad": [P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
+    "nct_wgrad_slices": [I, I, I, I, I],
 }
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}

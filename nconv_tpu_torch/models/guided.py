@@ -8,6 +8,10 @@ schedule). The feature convs' weights are rounded to it once, at
 construction and whenever a state dict is loaded. Step 1 and every depth
 tensor stay f32, and the per-scale residual adds promote the head's output
 back to f32.
+
+Training (step 2, f32): with grad enabled the convs run through their
+autograd Functions and BN follows ``train()`` / ``eval()``; step 1 is
+frozen and always runs its fused serving graph under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -61,7 +65,7 @@ class UpCat(nn.Module):
 
 class NewFusionBlock(nn.Module):
     """RGB-branch conv and depth-branch conv, their concat, then three
-    ConvBlocks; the last two run as one chained kernel."""
+    ConvBlocks; without grad the last two run as one chained kernel."""
 
     def __init__(self, rgb_channels, features, *, generator, device):
         super().__init__()
@@ -76,6 +80,8 @@ class NewFusionBlock(nn.Module):
         rgb_feat = self.rgb_conv(rgb, dtype=dtype)
         depth_feat = self.depth_conv(depth, dtype=dtype)
         fused = self.fuse_conv1([rgb_feat, depth_feat], dtype=dtype)
+        if torch.is_grad_enabled():  # K4 has no backward
+            return self.fuse_conv3(self.fuse_conv2(fused, dtype=dtype), dtype=dtype)
         return conv_chain(fused, self.fuse_conv2, self.fuse_conv3, dtype=dtype)
 
 
@@ -123,7 +129,8 @@ class GuidedDepthNet(nn.Module):
     returns ``(scales, None)``. :meth:`export` is the deployment form
     (final scale, border-masked). Inputs are NHWC: rgb ``(B, H, W, 3)``
     (uint8 frames are decoded inside the first conv), depth ``(B, H, W, 1)``.
-    Eval only.
+    With grad enabled ``forward`` is differentiable in every parameter but
+    step 1's (see the module docstring).
     """
 
     def __init__(
@@ -169,7 +176,8 @@ class GuidedDepthNet(nn.Module):
         else:
             rgb, depth = torch.cat([rgb0, rgb1]), torch.cat([depth0, depth1])
         b, h, w, _ = depth.shape
-        dense, _ = self.step1(depth)
+        with torch.no_grad():  # step 1 is frozen: its fused serving graph
+            dense, _ = self.step1(depth)
         dense = dense.reshape(b, 1, h, w)
         dt = self.dtype
         x = rgb.permute(0, 3, 1, 2)  # NCHW view; the conv reads it by strides
@@ -183,7 +191,6 @@ class GuidedDepthNet(nn.Module):
         _, d3 = self.fuse3(r0, dense, f2, d2, dtype=dt)
         return d0, d1, d2, d3
 
-    @torch.no_grad()
     def forward(self, rgb0, depth0, rgb1=None, depth1=None):
         b = rgb0.shape[0]
         nhwc = [d.permute(0, 2, 3, 1) for d in self._backbone(rgb0, depth0, rgb1, depth1)]

@@ -1,4 +1,4 @@
-"""Building blocks of the guided network, eval forms (NCHW).
+"""Building blocks of the guided network (NCHW).
 
 Every conv takes its input as a list of parts (a logical channel concat
 that is never materialized) and runs in a compute ``dtype``: parts are
@@ -8,15 +8,26 @@ compute dtype once, when it loads them (:func:`round_weights_`).
 Blocks built with ``fold_bn=True`` hold BatchNorm already folded into the
 conv (see :mod:`.fold`) and run as one fused kernel each; unfolded blocks
 run conv, :class:`_ChannelBN` and ReLU in turn.
+
+Every conv but the folded residual form runs through its autograd
+Function (:mod:`..ops.conv_autograd`), whose forward is the fused op; the
+backward is f32 (training). :class:`_ChannelBN` follows ``self.training``:
+batch statistics and running-average updates in train mode, the running
+statistics in eval mode.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.convops import conv3x3, conv3x3_chain2, conv_transpose4x4s2
+from ..ops.conv_autograd import conv3x3_trainable, conv_transpose4x4s2_trainable
+from ..ops.convops import conv3x3, conv3x3_chain2
+
+# the running statistics' decay, the JAX package's ``_ChannelBN.momentum``
+_BN_MOMENTUM = 0.9
 
 
 def _parts(x):
@@ -44,10 +55,17 @@ class Conv(nn.Module):
 
     def forward(self, x, *, dtype, stride=1, relu=False, shortcut=None):
         """3x3 pad-1 conv of ``x`` (a tensor or a list of parts)."""
-        return conv3x3(
-            _to(_parts(x), dtype), self.weight, self.bias, stride=stride,
-            relu=relu, shortcut=shortcut, out_dtype=dtype,
-        )
+        return _conv3x3(_to(_parts(x), dtype), self.weight, self.bias, dtype=dtype,
+                        stride=stride, relu=relu, shortcut=shortcut)
+
+
+def _conv3x3(parts, weight, bias, *, dtype, stride=1, relu=False, shortcut=None):
+    """The fused conv op through its autograd Function, except the residual
+    ``shortcut`` form, which has no backward: it serves folded models only."""
+    if shortcut is None:
+        return conv3x3_trainable(parts, weight, bias, stride=stride, relu=relu, out_dtype=dtype)
+    return conv3x3(parts, weight, bias, stride=stride, relu=relu, shortcut=shortcut,
+                   out_dtype=dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -61,13 +79,20 @@ class ConvTranspose(nn.Module):
         self.bias = _uniform((cout,), bound, generator, device) if bias else None
 
     def forward(self, x, *, dtype, relu):
-        return conv_transpose4x4s2(_to(_parts(x), dtype), self.weight, self.bias, relu=relu)
+        return conv_transpose4x4s2_trainable(_to(_parts(x), dtype), self.weight, self.bias, relu=relu)
 
 
 class _ChannelBN(nn.Module):
-    """Eval-mode BatchNorm over axis 1 with running statistics: the
-    per-channel ``rsqrt(var + eps) * weight`` is formed in f32, then the
-    elementwise ``(x - mean) * mul + bias`` runs in the input dtype."""
+    """BatchNorm over axis 1 (the JAX package's ``_ChannelBN``): the
+    per-channel ``rsqrt(var + eps) * weight`` is formed in at least f32,
+    then the elementwise ``(x - mean) * mul + bias`` runs in the input dtype.
+
+    Eval mode normalizes with the running statistics. Train mode uses the
+    batch's: the mean and the biased variance ``E[x^2] - E[x]^2`` over
+    (B, H, W), accumulated in at least f32, and moves the running
+    statistics to ``0.9 * running + 0.1 * batch``. (The
+    running variance is the biased one, as flax keeps it; ``F.batch_norm``
+    would store the unbiased.)"""
 
     def __init__(self, channels: int, eps: float = 1e-5, *, device):
         super().__init__()
@@ -79,8 +104,17 @@ class _ChannelBN(nn.Module):
 
     def forward(self, x):
         dt, shape = x.dtype, (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean.to(dt).view(shape)) * mul.to(dt).view(shape) + self.bias.to(dt).view(shape)
+        if self.training:
+            acc = torch.promote_types(dt, torch.float32)
+            mean = x.mean((0, 2, 3), dtype=acc)
+            var = (x * x).mean((0, 2, 3), dtype=acc) - mean * mean
+            with torch.no_grad():
+                self.running_mean.copy_(_BN_MOMENTUM * self.running_mean + (1 - _BN_MOMENTUM) * mean)
+                self.running_var.copy_(_BN_MOMENTUM * self.running_var + (1 - _BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.to(dt).view(shape)) * mul.to(dt).view(shape) + self.bias.to(dt).view(shape)
 
 
 class ConvBlock(nn.Module):
@@ -125,18 +159,21 @@ class Basic2dTrans(nn.Module):
         return torch.relu(self.bn(self.conv_t(x, dtype=dtype, relu=False)))
 
 
-def _embed_center(k1x1: torch.Tensor) -> torch.Tensor:
-    """A 1x1 kernel as the centre tap of a 3x3 pad-1 kernel (same stride,
-    same output grid)."""
-    k = k1x1.new_zeros(k1x1.shape[:2] + (3, 3))
-    k[:, :, 1, 1] = k1x1[:, :, 0, 0]
-    return k
+def stack_shortcut(weight, bias, shortcut):
+    """The RGB encoder's 3x3 conv ``(weight, bias)`` and its 1x1 ``shortcut``
+    as one 3x3 pad-1 conv with the outputs ``[main | shortcut]``: the 1x1
+    kernel as the centre tap of a 3x3 one (same stride, same output grid),
+    bias ``[bias | 0]``. Differentiable, so the shortcut's gradient is the
+    centre tap of its half and the bias's the main half's."""
+    return torch.cat([weight, F.pad(shortcut, (1, 1, 1, 1))]), torch.cat([bias, torch.zeros_like(bias)])
 
 
 class RGBEncoder(nn.Module):
     """Residual encoder stage ``relu(BN(conv3x3_s(x))) + conv1x1_s(x)``.
     Folded, the whole block is one kernel launch with the shortcut in the
-    epilogue."""
+    epilogue. Unfolded, the main conv and the shortcut run as one conv with
+    stacked outputs (:func:`stack_shortcut`); BN and ReLU apply to the main
+    half, and the shortcut half is added after them."""
 
     def __init__(self, cin, cout, stride, *, fold_bn=False, generator, device):
         super().__init__()
@@ -149,10 +186,10 @@ class RGBEncoder(nn.Module):
         sc = self.shortcut.weight
         if self.fold_bn:
             return self.conv(x, dtype=dtype, stride=self.stride, relu=True, shortcut=sc)
-        out = torch.relu(self.bn(self.conv(x, dtype=dtype, stride=self.stride)))
-        short = conv3x3(_to(_parts(x), dtype), _embed_center(sc), None,
-                        stride=self.stride, out_dtype=dtype)
-        return out + short
+        w, b = stack_shortcut(self.conv.weight, self.conv.bias, sc)
+        y = _conv3x3(_to(_parts(x), dtype), w, b, dtype=dtype, stride=self.stride)
+        f = self.conv.weight.shape[0]
+        return torch.relu(self.bn(y[:, :f])) + y[:, f:]
 
 
 class Conv3x3Head(nn.Module):
@@ -167,7 +204,8 @@ class Conv3x3Head(nn.Module):
 
 
 def conv_chain(x, first: ConvBlock, second: ConvBlock, *, dtype):
-    """Two ConvBlocks as one kernel launch (intermediate kept on chip)."""
+    """Two ConvBlocks as one kernel launch (intermediate kept on chip);
+    forward only (K4 has no backward)."""
     c1, c2 = first.conv, second.conv
     return conv3x3_chain2(x.to(dtype).contiguous(), c1.weight, c1.bias, c2.weight, c2.bias)
 
@@ -176,8 +214,11 @@ def conv_chain(x, first: ConvBlock, second: ConvBlock, *, dtype):
 def round_weights_(module: nn.Module, dtype: torch.dtype) -> None:
     """Round, in place, every :class:`Conv` and :class:`ConvTranspose`
     weight and bias under ``module`` to ``dtype``'s values; they stay f32
-    tensors, which the convs read as they are."""
-    if dtype == torch.float32:
+    tensors, which the convs read as they are. A no-op in f32 (the only
+    training precision so far) and in f64 (a reference run); bf16 training
+    must keep f32 master weights and round a copy for the convs, not the
+    weights in place."""
+    if dtype in (torch.float32, torch.float64):
         return
     for m in module.modules():
         if isinstance(m, (Conv, ConvTranspose)):

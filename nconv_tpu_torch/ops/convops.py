@@ -14,16 +14,26 @@ Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
   * :func:`conv3x3_chain2` — K4 (``csrc/chain.cu``): two 3x3 conv + bias +
     ReLU stages with the intermediate kept on chip.
 
-Gradients of a stride-1 conv, for the training backward (f32):
-  * :func:`conv2d_input_grad` — the input cotangent, a conv of the output
-    cotangent with the flipped, in/out-transposed kernel on K2's K x K
-    stride-1 form (``csrc/conv.cu``, ``nct_conv_kxk``);
-  * :func:`conv2d_weight_grad` — the weight cotangent on K5
-    (``csrc/filtergrad.cu``).
+Gradients, for the training backward (f32):
+  * :func:`conv2d_input_grad` — the input cotangent of a stride-1 conv, a
+    conv of the output cotangent with the flipped, in/out-transposed kernel
+    on K2's K x K stride-1 form (``csrc/conv.cu``, ``nct_conv_kxk``);
+  * :func:`conv2d_weight_grad` — the weight cotangent of step 1's
+    stride-1 convs on K5 (``csrc/filtergrad.cu``);
+  * :func:`conv3x3s2_input_grad` — the input cotangent of a 3x3 stride-2
+    conv, a 3x3/s2 transposed conv on K3's 3x3/s2 form (``csrc/convt.cu``,
+    ``nct_conv_transpose3x3s2``);
+  * :func:`conv_transpose4x4s2_input_grad` — the input cotangent of the
+    4x4/s2 transpose conv, a 4x4 stride-2 conv on K2's K x K form at
+    stride 2;
+  * :func:`conv2d_wgrad` — the weight cotangent of any of the guided net's
+    convs (3x3 at stride 1 or 2, and the 4x4/s2 transpose conv) on K6
+    (``csrc/wgrad.cu``), its inputs given as parts.
 
 All arithmetic is f32: weights and bias are taken at the values they hold
 (the caller rounds them to the compute dtype), inputs are widened on load,
-and the output is rounded once to its storage type.
+and the output is rounded once to its storage type. The plain versions
+keep float64 inputs in float64, as a reference for the f32 paths.
 """
 from __future__ import annotations
 
@@ -49,8 +59,13 @@ def conv_transpose2d(x, weight, bias=None, *, stride=2, padding=1):
         return F.conv_transpose2d(x, weight, bias, stride=stride, padding=padding)
 
 
-def _cat_f32(parts):
-    return torch.cat([p.float() for p in parts], 1) if len(parts) > 1 else parts[0].float()
+def _cat_wide(parts):
+    parts = [kernels.widen(p) for p in parts]
+    return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+
+
+def _wide(t):
+    return None if t is None else kernels.widen(t)
 
 
 def _f32(t):
@@ -104,12 +119,12 @@ def conv3x3_plain(parts, weight, bias=None, *, stride=1, relu=False,
     parts = list(parts)
     if out_dtype is None:
         out_dtype = torch.float32 if parts[0].dtype == torch.uint8 else parts[0].dtype
-    x = _cat_f32(parts)
-    y = conv2d(x, weight.float(), _f32(bias), stride=stride, padding=1)
+    x = _cat_wide(parts)
+    y = conv2d(x, _wide(weight), _wide(bias), stride=stride, padding=1)
     if relu:
         y = torch.relu(y)
     if shortcut is not None:
-        y = y + conv2d(x, shortcut.float(), stride=stride)
+        y = y + conv2d(x, _wide(shortcut), stride=stride)
     return y.to(out_dtype)
 
 
@@ -165,7 +180,7 @@ def conv_transpose4x4s2(
 def conv_transpose4x4s2_plain(parts, weight, bias=None, *, relu=True):
     """The plain PyTorch version of :func:`conv_transpose4x4s2`."""
     parts = list(parts)
-    y = conv_transpose2d(_cat_f32(parts), weight.float(), _f32(bias))
+    y = conv_transpose2d(_cat_wide(parts), _wide(weight), _wide(bias))
     if relu:
         y = torch.relu(y)
     return y.to(parts[0].dtype)
@@ -232,7 +247,8 @@ def _chain_kernel(x, w1, b1, w2, b2):
 
 
 # ---------------------------------------------------------------------------
-# Gradients of a stride-1 conv: K2's K x K form and K5
+# Gradients: K2's K x K form (stride 1, and 4x4 at stride 2), K3's 3x3/s2
+# form, K5 and K6
 # ---------------------------------------------------------------------------
 
 def _input_grad_conv(cot, weight, padding):
@@ -255,7 +271,7 @@ def conv2d_input_grad(cot: torch.Tensor, weight: torch.Tensor, padding: int) -> 
     if not kernels.on_card(cot, weight):
         return conv2d_input_grad_plain(cot, weight, padding)
     cot, w_t, pad = _input_grad_conv(cot, weight, padding)
-    return _conv_kxk_kernel(cot, w_t, pad)
+    return _conv_kxk_kernel(cot, w_t, pad, 1)
 
 
 def conv2d_input_grad_plain(cot, weight, padding):
@@ -264,36 +280,90 @@ def conv2d_input_grad_plain(cot, weight, padding):
     return conv2d(kernels.widen(cot), kernels.widen(w_t), padding=pad)
 
 
-def _conv_kxk_kernel(x, weight, padding):
+def conv_transpose4x4s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Input cotangent (B, cin, H, W) of :func:`conv_transpose4x4s2`
+    (weight (cin, cout, 4, 4)) from its output cotangent ``cot``
+    (B, cout, 2H, 2W): the 4x4 stride-2 pad-1 conv of ``cot`` with the
+    weight read as OIHW, O = cin (no flip). f32."""
+    if not kernels.on_card(cot, weight):
+        return conv_transpose4x4s2_input_grad_plain(cot, weight)
+    return _conv_kxk_kernel(cot, weight, 1, 2)
+
+
+def conv_transpose4x4s2_input_grad_plain(cot, weight):
+    """The plain PyTorch version of :func:`conv_transpose4x4s2_input_grad`."""
+    return conv2d(kernels.widen(cot), kernels.widen(weight), stride=2, padding=1)
+
+
+def _conv_kxk_kernel(x, weight, padding, stride):
     kernels.no_graph("conv_kxk", x, weight)
     b, cin, h, w = x.shape
     cout, k = weight.shape[0], weight.shape[-1]
-    if tuple(weight.shape) != (cout, cin, k, k) or k not in (1, 3, 5) or not 0 <= padding < k:
-        raise ValueError(f"K2 k x k form takes k in (1, 3, 5), pad in [0, k); "
-                         f"got weight {tuple(weight.shape)}, x {tuple(x.shape)}, pad {padding}")
+    if (tuple(weight.shape) != (cout, cin, k, k) or (k, stride) not in ((1, 1), (3, 1), (5, 1), (4, 2))
+            or not 0 <= padding < k or min(h, w) + 2 * padding < k):
+        raise ValueError(f"K2 k x k form takes (k, stride) in (1|3|5, 1) or (4, 2), pad in [0, k); "
+                         f"got weight {tuple(weight.shape)}, x {tuple(x.shape)}, stride {stride}, "
+                         f"pad {padding}")
     if x.dtype != torch.float32:
         raise TypeError(f"K2 k x k form takes float32, got {x.dtype}")
-    ho, wo = h + 2 * padding - k + 1, w + 2 * padding - k + 1
+    ho, wo = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
     w32 = _f32(weight)
     out = torch.empty((b, cout, ho, wo), device=x.device)
     ptrs, meta = kernels.part_args([x], [False])
     code = kernels.lib().nct_conv_kxk(
-        ptrs, meta, b, h, w, cin, ho, wo, cout, k, padding, w32.data_ptr(),
+        ptrs, meta, b, h, w, cin, ho, wo, cout, k, stride, padding, w32.data_ptr(),
         out.data_ptr(), kernels.stream_of(out),
     )
     kernels.check(code, "conv_kxk kernel")
-    kernels.LAUNCHES["conv_kxk"] += 1
+    kernels.LAUNCHES["conv_kxk" if stride == 1 else "conv4x4s2"] += 1
     return out
 
 
-def _weight_grad_pads(x, g, ksize, padding, pad_top):
-    """(pad_top, pad_bottom, pad_left, pad_right) of the forward conv, the
-    bottom and right pads implied by the output size."""
+def conv3x3s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Input cotangent (B, cin, 2h, 2w) of a 3x3 stride-2 pad-1 conv of an
+    even-sized input (weight (cout, cin, 3, 3)) from its output cotangent
+    ``cot`` (B, cout, h, w): the 3x3/s2/p1 transposed conv with
+    output_padding 1. f32."""
+    if not kernels.on_card(cot, weight):
+        return conv3x3s2_input_grad_plain(cot, weight)
+    return _conv_transpose3x3s2_kernel(cot, weight)
+
+
+def conv3x3s2_input_grad_plain(cot, weight):
+    """The plain PyTorch version of :func:`conv3x3s2_input_grad`."""
+    with kernels.exact_f32(cot):
+        return F.conv_transpose2d(kernels.widen(cot), kernels.widen(weight), stride=2,
+                                  padding=1, output_padding=1)
+
+
+def _conv_transpose3x3s2_kernel(cot, weight):
+    kernels.no_graph("conv_transpose3x3s2", cot, weight)
+    b, cin, h, w = cot.shape
+    cout = weight.shape[1]
+    if tuple(weight.shape) != (cin, cout, 3, 3):
+        raise ValueError(f"K3 3x3/s2 form: weight {tuple(weight.shape)} does not fit {tuple(cot.shape)}")
+    if cot.dtype != torch.float32:
+        raise TypeError(f"K3 3x3/s2 form takes float32, got {cot.dtype}")
+    w32 = _f32(weight)
+    out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device)
+    ptrs, meta = kernels.part_args([cot], [False])
+    code = kernels.lib().nct_conv_transpose3x3s2(
+        ptrs, meta, b, h, w, cin, cout, w32.data_ptr(), out.data_ptr(), kernels.stream_of(out),
+    )
+    kernels.check(code, "conv_transpose3x3s2 kernel")
+    kernels.LAUNCHES["conv_transpose3x3s2"] += 1
+    return out
+
+
+def _weight_grad_pads(x, g, ksize, padding, pad_top, stride=1):
+    """(pad_top, pad_bottom, pad_left, pad_right) of the forward conv at
+    ``stride``, the bottom and right pads implied by the output size."""
     (b, _, h, w), (bg, _, ho, wo) = x.shape, g.shape
-    pads = (pad_top, ho - h - pad_top + ksize - 1, padding, wo - w - padding + ksize - 1)
+    pads = (pad_top, stride * (ho - 1) + ksize - h - pad_top,
+            padding, stride * (wo - 1) + ksize - w - padding)
     if b != bg or min(pads) < 0:
-        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} are not a "
-                         f"stride-1 {ksize}x{ksize} conv at pads {pads}")
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} are not a stride-{stride} "
+                         f"{ksize}x{ksize} conv at pads {pads}")
     return pads
 
 
@@ -311,20 +381,22 @@ def conv2d_weight_grad(
     return _filtergrad_kernel(x, g, ksize, padding, pad_top)
 
 
-def conv2d_weight_grad_plain(x, g, ksize, padding, pad_top=None):
-    """The plain PyTorch version of :func:`conv2d_weight_grad`: one
+def conv2d_weight_grad_plain(x, g, ksize, padding, pad_top=None, *, stride=1):
+    """The plain PyTorch version of :func:`conv2d_weight_grad` and, with
+    ``x`` and ``g`` as lists of parts, of :func:`conv2d_wgrad`: one
     contraction over (B, Ho, Wo) per tap."""
+    x, g = (_cat_wide(t) if isinstance(t, (list, tuple)) else kernels.widen(t) for t in (x, g))
     pad_top = padding if pad_top is None else pad_top
-    pt, pb, pl, pr = _weight_grad_pads(x, g, ksize, padding, pad_top)
+    pt, pb, pl, pr = _weight_grad_pads(x, g, ksize, padding, pad_top, stride)
     ho, wo = g.shape[2:]
-    xp = F.pad(kernels.widen(x), (pl, pr, pt, pb))
-    g = kernels.widen(g)
+    rows, cols = stride * (ho - 1) + 1, stride * (wo - 1) + 1
+    xp = F.pad(x, (pl, pr, pt, pb))
     dw = g.new_empty((g.shape[1], x.shape[1], ksize, ksize))
     with kernels.exact_f32(x):
         for dy in range(ksize):
             for dx in range(ksize):
                 dw[:, :, dy, dx] = torch.einsum(
-                    "bchw,bohw->oc", xp[:, :, dy:dy + ho, dx:dx + wo], g)
+                    "bchw,bohw->oc", xp[:, :, dy:dy + rows:stride, dx:dx + cols:stride], g)
     return dw
 
 
@@ -347,4 +419,55 @@ def _filtergrad_kernel(x, g, ksize, padding, pad_top):
     )
     kernels.check(code, "filtergrad kernel")
     kernels.LAUNCHES["filtergrad"] += 1
+    return out
+
+
+def conv2d_wgrad(
+    x_parts: Sequence[torch.Tensor],
+    g_parts: Sequence[torch.Tensor],
+    ksize: int,
+    *,
+    stride: int = 1,
+    padding: int,
+) -> torch.Tensor:
+    """Weight cotangent (M, cin, k, k), f32, of a k x k conv at ``stride``
+    and symmetric pad ``padding``: ``x_parts`` are the parts of its input
+    (B, c_i, H, W) and ``g_parts`` of its output cotangent (B, m_i, Ho, Wo),
+    each a logical channel concat. With the roles swapped (x the output
+    cotangent of :func:`conv_transpose4x4s2`, g its input, k 4, stride 2,
+    pad 1) it is that transpose conv's weight cotangent, (cin, cout, 4, 4)."""
+    x_parts, g_parts = list(x_parts), list(g_parts)
+    _check_same_geometry(x_parts)
+    _check_same_geometry(g_parts)
+    _weight_grad_pads(x_parts[0], g_parts[0], ksize, padding, padding, stride)
+    if not kernels.on_card(*x_parts, *g_parts):
+        return conv2d_weight_grad_plain(x_parts, g_parts, ksize, padding, stride=stride)
+    return _wgrad_kernel(x_parts, g_parts, ksize, stride, padding)
+
+
+def _wgrad_kernel(x_parts, g_parts, ksize, stride, padding):
+    kernels.no_graph("wgrad", *x_parts, *g_parts)
+    b, h, w = _check_same_geometry(x_parts)
+    ho, wo = g_parts[0].shape[2:]
+    if ((ksize, stride) not in ((3, 1), (3, 2), (4, 2)) or max(len(x_parts), len(g_parts)) > 4
+            or not 0 <= padding < ksize
+            or (ho, wo) != ((h + 2 * padding - ksize) // stride + 1, (w + 2 * padding - ksize) // stride + 1)):
+        raise ValueError(f"K6 takes (k, stride) in (3, 1), (3, 2), (4, 2), pad in [0, k), at most 4 parts "
+                         f"a side and the conv's own output size; got k {ksize}, stride {stride}, pad "
+                         f"{padding}, x {tuple(x_parts[0].shape)}, g {tuple(g_parts[0].shape)}")
+    if any(p.dtype != torch.float32 for p in x_parts + g_parts):
+        raise TypeError("K6 takes float32 parts")
+    cin, m = sum(p.shape[1] for p in x_parts), sum(p.shape[1] for p in g_parts)
+    lib = kernels.lib()
+    part = torch.empty((lib.nct_wgrad_slices(b, ho, wo, m, cin * ksize * ksize), m, cin * ksize * ksize),
+                       device=x_parts[0].device)
+    out = torch.empty((m, cin, ksize, ksize), device=x_parts[0].device)
+    gptrs, gmeta = kernels.part_args(g_parts, [False] * len(g_parts))
+    xptrs, xmeta = kernels.part_args(x_parts, [False] * len(x_parts))
+    code = lib.nct_wgrad(
+        gptrs, gmeta, len(g_parts), xptrs, xmeta, len(x_parts), b, m, cin, h, w, ho, wo,
+        ksize, stride, padding, part.data_ptr(), out.data_ptr(), kernels.stream_of(out),
+    )
+    kernels.check(code, "wgrad kernel")
+    kernels.LAUNCHES["wgrad"] += 1
     return out

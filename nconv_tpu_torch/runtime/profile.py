@@ -1,11 +1,13 @@
 """Where one two-stream request's, or one train step's, time goes on the card.
 
-    python -m nconv_tpu_torch.runtime.profile [--dtype bf16|f32] [--frames N] [--train]
+    python -m nconv_tpu_torch.runtime.profile [--dtype bf16|f32] [--frames N]
+                                              [--train [unguided|guided]]
 
 Builds a ``StreamingEngine`` at KITTI 352x1216 with random weights, warms
 it up, and traces ``N`` requests with ``torch.profiler``; with ``--train``,
-traces ``N`` step-1 train steps instead (``Trainer.train_step``, batch 4,
-adamw, the JAX bench's synthetic batch, f32). Prints one JSON object: the
+traces ``N`` train steps instead (``Trainer.train_step``, adamw, the JAX
+bench's synthetic batch, f32): step 1 at batch 4 (``unguided``, the
+default) or step 2 at batch 1 with step 1 frozen (``guided``). Prints one JSON object: the
 card, wall ms per request (or step), device-busy ms per request and the
 busy share of the window, and device ms per request for each kernel name
 (the port's kernels and every PyTorch op between them), largest first.
@@ -22,7 +24,7 @@ import torch
 
 from ..data import bench_batch
 from ..models import GuidedDepthNet, NConvUNet
-from ..training import OptimizerConfig, TrainConfig, Trainer, UnguidedTask
+from ..training import GuidedTask, OptimizerConfig, TrainConfig, Trainer, UnguidedTask
 from .streaming import StreamingEngine
 
 
@@ -35,10 +37,13 @@ def _request(dtype, h, w):
     return lambda: eng(rgb, d, rgb, d)
 
 
-def _train_step(h, w):
-    cfg = TrainConfig(batch_size=4, optimizer=OptimizerConfig("adamw", 1e-3, 1e-7))
-    trainer = Trainer(UnguidedTask(NConvUNet(device="cuda")), cfg)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in bench_batch(4, h, w).items()}
+def _train_step(kind, h, w):
+    if kind == "guided":
+        b, task = 1, GuidedTask(GuidedDepthNet(device="cuda"))
+    else:
+        b, task = 4, UnguidedTask(NConvUNet(device="cuda"))
+    trainer = Trainer(task, TrainConfig(batch_size=b, optimizer=OptimizerConfig("adamw", 1e-3, 1e-7)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in bench_batch(b, h, w).items()}
     return lambda: trainer.train_step(batch)
 
 
@@ -46,13 +51,14 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--frames", type=int, default=10)
-    ap.add_argument("--train", action="store_true", help="trace step-1 train steps (f32)")
+    ap.add_argument("--train", nargs="?", const="unguided", choices=("unguided", "guided"),
+                    help="trace train steps (f32) of step 1 (default) or of step 2")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     h, w = 352, 1216
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    run = _train_step(h, w) if args.train else _request(dtype, h, w)
+    run = _train_step(args.train, h, w) if args.train else _request(dtype, h, w)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -63,9 +69,11 @@ def main(argv=None) -> dict:
             run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_name = {}  # device-side events only (kernels, copies), by name
+    # device-side events only (kernels, copies), by name; a GPU user
+    # annotation (e.g. the optimizer's step range) spans kernels already counted
+    per_name = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
             per_name[evt.name] = per_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     busy_ms = sum(per_name.values()) / 1e3 / args.frames
     wall_ms = wall * 1e3 / args.frames
@@ -74,7 +82,7 @@ def main(argv=None) -> dict:
         capture_output=True, text=True,
     ).stdout.strip()
     out = {
-        "card": card, "what": "train_step" if args.train else "request",
+        "card": card, "what": f"{args.train}_train_step" if args.train else "request",
         "dtype": "f32" if args.train else args.dtype, "hw": [h, w], "frames": args.frames,
         "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms if per_name else "not measured",

@@ -1,4 +1,5 @@
-"""Training of the port: step 1 (``UnguidedTask``) on one device."""
+"""Training of the port: step 1 (``UnguidedTask``) and step 2 (``GuidedTask``)
+on one device."""
 from .checkpoint import CheckpointManager
 from .config import OptimizerConfig, SchedulerConfig, TrainConfig
 from .optim import (
@@ -11,10 +12,10 @@ from .optim import (
     get_learning_rate,
     set_learning_rate,
 )
-from .trainer import FitResult, Trainer, UnguidedTask
+from .trainer import FitResult, GuidedTask, Trainer, UnguidedTask
 
 __all__ = [
-    "CheckpointManager", "ConstantScheduler", "FitResult", "LinearScheduler",
+    "CheckpointManager", "ConstantScheduler", "FitResult", "GuidedTask", "LinearScheduler",
     "OptimizerConfig", "PlateauScheduler", "RMSprop", "SchedulerConfig",
     "TrainConfig", "Trainer", "UnguidedTask", "build_optimizer",
     "build_scheduler", "get_learning_rate", "set_learning_rate",

@@ -1,11 +1,14 @@
-"""Training harness of the port: the step-1 task, the train and eval
-steps, and the host-side loop (the JAX package's ``training/trainer.py``,
-single device).
+"""Training harness of the port: the step-1 and step-2 tasks, the train
+and eval steps, and the host-side loop (the JAX package's
+``training/trainer.py``, single device).
 
-One train step is forward, ``loss.backward()`` and the optimizer's step on
-the model's parameters in place. On the card the forward runs K1 and the
-backward K2's K x K form and K5 (``ops/nconv.py``); evaluation runs under
-``torch.no_grad()``, which takes the fused serving forward.
+One train step is ``model.train()``, forward, ``loss.backward()`` and the
+optimizer's step on the parameters that require grad, in place; evaluation
+is ``model.eval()`` under ``torch.no_grad()``, which takes the fused serving
+forward. On the card, step 1's forward runs K1 and its backward K2's K x K
+form and K5 (``ops/nconv.py``); step 2's forward runs K1 (frozen step 1),
+K2 and K3, and its backward K2's K x K forms, K3's 3x3/s2 form and K6
+(``ops/conv_autograd.py``).
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ import numpy as np
 import torch
 
 from ..data.pipeline import prefetch_to_device
-from ..losses import depth_loss
-from ..models import NConvUNet
+from ..losses import depth_loss, multi_resolution_loss
+from ..models import GuidedDepthNet, NConvUNet
 from ..models.backend import resolve_device
 from .checkpoint import CheckpointManager
 from .config import TrainConfig
@@ -53,6 +56,38 @@ class UnguidedTask:
         return self.model(batch["depth"])[0]
 
 
+class GuidedTask:
+    """Step-2 training: RGB + sparse depth -> multi-scale refined depth,
+    step 1 frozen, multi-resolution loss.
+
+    The reference feeds the same (rgb, depth) to both streams and its loss
+    reads stream 0. BN's batch mean and biased variance over [x; x] equal
+    those over x, so stream 0 of the two-stream forward is the single-stream
+    forward: as in the JAX package, only the single stream is computed.
+    ``step1_state`` (an ``NConvUNet`` state dict) is loaded into the frozen
+    step 1, whose parameters stop requiring grad, so the optimizer never
+    sees them.
+    """
+
+    name = "guided"
+
+    def __init__(self, model: GuidedDepthNet | None = None, step1_state: dict | None = None):
+        self.model = model if model is not None else GuidedDepthNet()
+        if step1_state is not None:
+            self.model.step1.load_state_dict(step1_state)
+        self.model.step1.requires_grad_(False)
+
+    def loss(self, batch: dict, *, cfg: TrainConfig) -> torch.Tensor:
+        scales, _ = self.model(batch["rgb"], batch["depth"])
+        return multi_resolution_loss(scales, batch["gt"], use_gradient_loss=cfg.use_gradient_loss,
+                                     batch_reduce=cfg.batch_reduce)
+
+    @torch.no_grad()
+    def predict(self, batch: dict) -> torch.Tensor:
+        """The finest scale, (B, H, W, 1)."""
+        return self.model(batch["rgb"], batch["depth"])[0][-1]
+
+
 @dataclass
 class FitResult:
     best_variables: dict
@@ -67,7 +102,10 @@ def _host_copy(model: torch.nn.Module) -> dict:
 class Trainer:
     """``Trainer(task, cfg).fit(train_loader, val_loader)``; the loaders are
     callables that return an iterable of numpy batch dicts. Runs on
-    ``device`` (default ``cuda``; raises without a GPU)."""
+    ``device`` (default ``cuda``; raises without a GPU). The optimizer takes
+    the parameters that require grad, so a frozen step 1 keeps its values
+    bit for bit; checkpoints hold the model's whole state dict, BN running
+    statistics included."""
 
     def __init__(
         self,
@@ -90,6 +128,7 @@ class Trainer:
     def train_step(self, batch: dict) -> torch.Tensor:
         """One optimizer step on a batch of device tensors; returns the
         loss before the step (a 0-d tensor, not synchronised)."""
+        self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.task.loss(batch, cfg=self.cfg)
         loss.backward()
@@ -98,6 +137,7 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:
+        self.model.eval()
         return self.task.loss(batch, cfg=self.cfg)
 
     # -- the loop ----------------------------------------------------------
@@ -198,6 +238,7 @@ class Trainer:
         """Debug dumps of batch element 0: prediction, sparse input and GT,
         each min-max normalised to an 8-bit grayscale PNG."""
         os.makedirs(self.cfg.image_dir, exist_ok=True)
+        self.model.eval()
         pred = self.task.predict(batch)
         stem = os.path.join(self.cfg.image_dir, f"{self.cfg.run_name}_e{epoch}_b{batch_idx}")
         for suffix, t in (("_out", pred), ("_sparse", batch["depth"]), ("_gt", batch["gt"])):

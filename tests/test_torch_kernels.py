@@ -165,3 +165,53 @@ def test_no_graph_guard_raises_only_with_grad_enabled():
     kernels.no_graph("k", w.detach(), None)
     with torch.no_grad():
         kernels.no_graph("k", w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(20, 36), (37, 150)])
+def test_guided_gradient_kernels_match_plain_versions(card, h, w):
+    """K3's 3x3/s2 form, K2's 4x4/s2 form and K6 (3x3 at stride 1 and 2 over
+    two parts, 4x4/s2 with the roles swapped) on ragged tiles; K6 sums in a
+    fixed order, so a repeat is bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    kernels.reset_launch_counts()
+    cot2 = r(2, 24, h // 2 + 1, w // 2 + 1)  # the stride-2 cotangent of a (2h', 2w') input
+    w3 = r(24, 20, 3, 3)
+    assert _close(ops.conv3x3s2_input_grad(cot2, w3), ops.conv3x3s2_input_grad_plain(cot2, w3), 1e-5)
+    up = r(2, 16, 2 * h, 2 * w)
+    w4 = r(9, 16, 4, 4)
+    assert _close(ops.conv_transpose4x4s2_input_grad(up, w4), ops.conv_transpose4x4s2_input_grad_plain(up, w4), 1e-5)
+    x = [r(2, 5, h, w), r(2, 70, h, w)[:, 3:]]  # a channel-offset view as the second part
+    for stride, m in ((1, 40), (2, 128), (1, 1)):
+        gp = [r(2, m, (h - 1) // stride + 1, (w - 1) // stride + 1)]
+        dw = ops.conv2d_wgrad(x, gp, 3, stride=stride, padding=1)
+        assert _close(dw, ops.conv2d_weight_grad_plain(x, gp, 3, 1, stride=stride), 1e-5)
+        assert torch.equal(dw, ops.conv2d_wgrad(x, gp, 3, stride=stride, padding=1))
+    small = [r(2, 1, h, w), r(2, 8, h, w)]  # [depth | fusion] of a transpose conv
+    dw = ops.conv2d_wgrad([up], small, 4, stride=2, padding=1)
+    assert dw.shape == (9, 16, 4, 4)
+    assert _close(dw, ops.conv2d_weight_grad_plain([up], small, 4, 1, stride=2), 1e-5)
+    counts = kernels.launch_counts()
+    assert (counts["conv_transpose3x3s2"], counts["conv4x4s2"], counts["wgrad"]) == (1, 1, 7)
+
+
+@pytest.mark.cuda
+def test_guided_functions_backward_on_the_kernels(card):
+    """With grad enabled, the three conv Functions run K2 / K3 forward and
+    their backward on K2's K x K forms, K3's 3x3/s2 form and K6."""
+    g = torch.Generator(device=card).manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    x, w1, b = r(2, 8, 16, 24).requires_grad_(), r(16, 8, 3, 3).requires_grad_(), r(16).requires_grad_()
+    ws2 = r(32, 16, 3, 3).requires_grad_()
+    wt = r(33, 8, 4, 4).requires_grad_()
+    kernels.reset_launch_counts()
+    y = ops.conv3x3_trainable([x], w1, b, relu=True)
+    z = ops.conv3x3_trainable([y], ws2, None, stride=2)
+    d = z[:, :1]
+    u = ops.conv_transpose4x4s2_trainable([d, z], wt, None, relu=True)
+    u.square().sum().backward()
+    counts = kernels.launch_counts()
+    assert (counts["conv"], counts["conv_transpose"]) == (2, 1)
+    assert (counts["conv_kxk"], counts["conv_transpose3x3s2"], counts["conv4x4s2"], counts["wgrad"]) == (1, 1, 1, 3)
+    assert all(t.grad is not None for t in (x, w1, b, ws2, wt))

@@ -115,7 +115,7 @@ def test_guided_forward_matches_jax(guided_vars, two_stream):
         assert len(gs) == 4
         for g, w in zip(gs, ws):
             assert g.shape == w.shape
-            assert rel(g.numpy(), w) <= 1e-4
+            assert rel(g.detach().numpy(), w) <= 1e-4
 
 
 @pytest.fixture(scope="module")
