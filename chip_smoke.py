@@ -39,6 +39,19 @@ Phases (any failure raises and the script exits non-zero):
      statistics; (c) five steps of ``Trainer.fit`` on one batch, loss finite
      and falling, step 1 bitwise unchanged; (d) the launch counts per train
      step; (e) train-step p50 / p90 from CUDA events.
+  6. guided training in the mixed schedule: phase 5's model, state, batch
+     and config with ``dtype=torch.bfloat16`` (bf16 feature convs, BN
+     elementwise math and ReLU masks; f32 step 1, depth tensors, loss, BN
+     statistics and master weights). (a) every kernel call of one bf16 train
+     step against its plain version, at each distinct shape (the bf16 forms
+     of K2's K x K and 4x4/s2 forms, K3's 3x3/s2 form and K6); (b) one bf16
+     step, kernel path against plain path, gradients and the new BN running
+     statistics also against phase 5's plain float64 path; (c) five steps
+     of ``Trainer.fit``: loss finite and falling, within 2% of phase 5's f32
+     fit, step 1 bitwise unchanged, every parameter f32; (d) launch counts
+     per step, as phase 5's; (e) train-step p50 / p90 beside phase 5's; (f)
+     ``evaluate(make_guided_predict(model), [batch])`` on the fitted bf16
+     and f32 models.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``; every checked call's numbers go
@@ -62,10 +75,11 @@ REPS = 20
 F32_BAR, BF16_BAR = 1e-5, 5e-3  # kernel vs plain, rel RMSE; bf16: output rounding
 ENGINE_BAR, MIXED_BAR = 1e-4, 1e-3  # engine kernel vs plain path; mixed vs f32 plain
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
-# FLOP/s by a call's compute type, which is its output's storage type: in the
-# mixed schedule every operand holds bf16 values (weights are rounded to bf16
-# once, a u8 pixel is exact in bf16), so the card could run it at the bf16
-# tensor-core rate; f32 calls get the f32 CUDA-core rate.
+# FLOP/s by the storage type of a call's operands, not of its output: a call
+# on bf16 operands could run at the bf16 tensor-core rate (a K6 call on bf16
+# parts too, though its output is f32); f32 operands get the f32 CUDA-core
+# rate. A u8 frame counts as its weights' type, which the output shares: a u8
+# pixel is exact in bf16, and the mixed schedule holds bf16-valued weights.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 PER_FRAME = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
 # step 1 trains all 9 nconvs; nconv1's input (the sparse depth) needs no
@@ -85,6 +99,10 @@ PER_GUIDED_EVAL = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
 GUIDED_B = 1
 STATS_BAR = 1e-5  # BN running statistics after a step, kernel path vs plain path
 LOSS_BAR, GRAD_BAR = 1e-6, 1e-4  # train step, kernel path vs plain path
+# the same in the mixed schedule, where the two paths may round a bf16
+# activation, and so a ReLU mask, differently
+BF16_STATS_BAR, BF16_LOSS_BAR, BF16_GRAD_BAR = 1e-3, 1e-4, 1e-3
+FIT_RTOL = 0.02  # bf16 fit losses vs the f32 fit's (tests/test_training.py of the JAX package)
 # a gradient whose f32 rounding (plain f32 vs plain f64) exceeds GRAD_BAR is
 # held to GRAD_NOISE x that rounding instead
 GRAD_NOISE = 4.0
@@ -101,6 +119,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 }
 TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
 GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per guided train step
+# their bf16 forms, per bf16 guided train step, as entries of their own
+BF16_KERNELS = ("conv_kxk", "conv4x4s2", "conv_transpose3x3s2", "wgrad")
 
 
 def log(*a):
@@ -248,7 +268,7 @@ def check_call(key, g):
         args = dict(padding=padding, up2=list(up2), crop=crop, pool_out=pool_out, eps=eps)
         kern = lambda: nconv._nconv2d_kernel(d, c, w, b, padding, list(up2), crop, pool_out, eps)
         plain = lambda: nconv.nconv2d_fused_plain(d, c, w, b, **args)
-        out_dt = "float32"
+        out_dt = in_dt = "float32"
         macs_per_out = 2 * wsig[0][1] * wsig[0][2] * wsig[0][3]
         inputs = d + c + [w, b]
     elif kind == "conv":
@@ -268,6 +288,7 @@ def check_call(key, g):
         library = lambda: F.conv2d(xl, wl, bl, stride=stride, padding=1)
         macs_per_out = wsig[0][1] * 9 + (wsig[0][1] if sc is not None else 0)
         inputs = parts + [w, b, sc]
+        in_dt = out_dt if psigs[0][1] == "uint8" else psigs[0][1]
     elif kind == "conv_transpose":
         _, psigs, wsig, has_b, relu = key
         parts = [_rand(s, g) for s in psigs]
@@ -282,13 +303,14 @@ def check_call(key, g):
         library = lambda: F.conv_transpose2d(xl, wl, bl, stride=2, padding=1)
         macs_per_out = wsig[0][0] * 4
         inputs = parts + [w, b]
+        in_dt = out_dt
     elif kind in ("conv_kxk", "conv4x4s2"):
         _, xsig, wsig, padding, stride = key
         x = _rand(xsig, g)
         cout, cin, k, _ = wsig[0]
         w = _rand(wsig, g, scale=(cin * k * k) ** -0.5)
         kern = lambda: convops._conv_kxk_kernel(x, w, padding, stride)
-        plain = lambda: convops.conv2d(x, w, stride=stride, padding=padding)
+        plain = lambda: convops.conv2d(x.float(), w.float(), stride=stride, padding=padding).to(x.dtype)
         if stride == 1:
             # the same function as the input cotangent of the forward conv whose
             # flipped, in/out-transposed kernel w is: one library call
@@ -297,7 +319,7 @@ def check_call(key, g):
             library = lambda: torch.nn.grad.conv2d_input(out_shape, w_fwd, x, padding=k - 1 - padding)
         else:
             library = lambda: F.conv2d(x, w, stride=stride, padding=padding)
-        out_dt = "float32"
+        out_dt = in_dt = xsig[1]
         macs_per_out = cin * k * k
         inputs = [x, w]
     elif kind == "conv_transpose3x3s2":
@@ -308,7 +330,7 @@ def check_call(key, g):
         kern = lambda: convops._conv_transpose3x3s2_kernel(x, w)
         plain = lambda: convops.conv3x3s2_input_grad_plain(x, w)
         library = lambda: F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1)
-        out_dt = "float32"
+        out_dt = in_dt = xsig[1]
         macs_per_out = cin * 9 / 4  # each input pixel's 9 taps feed a 2x2 output quad
         inputs = [x, w]
     elif kind == "wgrad":
@@ -319,7 +341,7 @@ def check_call(key, g):
         xl, gl = torch.cat(xs, 1), torch.cat(gs, 1)
         w_shape = (gl.shape[1], xl.shape[1], k, k)
         library = lambda: torch.nn.grad.conv2d_weight(xl, w_shape, gl, stride=stride, padding=padding)
-        out_dt = "float32"
+        out_dt, in_dt = "float32", xsigs[0][1]
         b_, _, ho, wo = gl.shape
         macs_per_out = b_ * ho * wo  # each weight-cotangent entry sums B*Ho*Wo products
         inputs = xs + gs
@@ -331,13 +353,13 @@ def check_call(key, g):
         symmetric = pad_top == padding == gsig[0][2] - xsig[0][2] - padding + k - 1
         w_shape = (gsig[0][1], xsig[0][1], k, k)
         library = (lambda: torch.nn.grad.conv2d_weight(x, w_shape, gr, padding=padding)) if symmetric else None
-        out_dt = "float32"
+        out_dt = in_dt = "float32"
         b_, _, ho, wo = gsig[0]
         macs_per_out = b_ * ho * wo  # each weight-cotangent entry sums B*Ho*Wo products
         inputs = [x, gr]
     else:
         _, xsig, w1sig, w2sig = key
-        out_dt = xsig[1]
+        out_dt = in_dt = xsig[1]
         x = _rand(xsig, g)
         w1 = _rand(w1sig, g, scale=(9 * w1sig[0][1]) ** -0.5)
         w2 = _rand(w2sig, g, scale=(9 * w2sig[0][1]) ** -0.5)
@@ -360,10 +382,10 @@ def check_call(key, g):
     out_elems = k_out[0].numel()
     flops = 2 * macs_per_out * out_elems
     nbytes = _nbytes(*inputs, *k_out)
-    t_ops = flops / PEAK_OPS[out_dt] * 1e3
+    t_ops = flops / PEAK_OPS[in_dt] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(
-        kind=kind, err=err, abs_err=abs_err, bar=bar, out_dtype=out_dt,
+        kind=kind, err=err, abs_err=abs_err, bar=bar, out_dtype=out_dt, in_dtype=in_dt,
         shape=[list(t.shape) for t in k_out[:1]],
         ms=time_ms(kern), plain_ms=time_ms(plain),
         library_ms=time_ms(library) if library else None,
@@ -501,26 +523,28 @@ def step_sums(calls, results, kinds):
     return sums
 
 
-def grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, label):
-    """Kernel path vs plain path: the loss within LOSS_BAR and each gradient
-    within max(GRAD_BAR, GRAD_NOISE x the plain f32 path's own error against
-    the plain f64 path). Raises on a miss; returns the per-gradient numbers."""
+def grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, label, *,
+                loss_bar=LOSS_BAR, grad_bar=GRAD_BAR):
+    """Kernel path vs plain path: the loss within ``loss_bar`` and each
+    gradient within max(``grad_bar``, GRAD_NOISE x the plain path's own error
+    against the plain f64 path). Raises on a miss; returns the per-gradient
+    numbers."""
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     checks, missed = {}, []
     for name in grads_p:
         vs_plain = rel_rmse(grads_k[name], grads_p[name])
-        rounding = rel_rmse(grads_p[name], grads_64[name])  # the f32 plain path's own error
-        bar = max(GRAD_BAR, GRAD_NOISE * rounding)
+        rounding = rel_rmse(grads_p[name], grads_64[name])  # the plain path's own error
+        bar = max(grad_bar, GRAD_NOISE * rounding)
         checks[name] = dict(vs_plain=vs_plain, kernel_vs_f64=rel_rmse(grads_k[name], grads_64[name]),
                             plain_vs_f64=rounding, bar=bar)
         if vs_plain > bar:
             missed.append((name, vs_plain, bar))
-    log(f"[{'FAIL' if missed or loss_err > LOSS_BAR else 'ok'}] {label} train step kernel vs plain: "
-        f"loss {loss_k:.6f} rel {loss_err:.2e} (bar {LOSS_BAR:.0e}; f64 loss {loss_64:.6f})")
+    log(f"[{'FAIL' if missed or loss_err > loss_bar else 'ok'}] {label} train step kernel vs plain: "
+        f"loss {loss_k:.6f} rel {loss_err:.2e} (bar {loss_bar:.0e}; f64 loss {loss_64:.6f})")
     for name, c in checks.items():
         log(f"    grad {name:<36} vs plain {c['vs_plain']:.2e} (bar {c['bar']:.1e})  "
-            f"kernel vs f64 {c['kernel_vs_f64']:.2e}  plain f32 vs f64 {c['plain_vs_f64']:.2e}")
-    if loss_err > LOSS_BAR or missed:
+            f"kernel vs f64 {c['kernel_vs_f64']:.2e}  plain vs f64 {c['plain_vs_f64']:.2e}")
+    if loss_err > loss_bar or missed:
         raise SystemExit(f"chip_smoke: {label} train step kernel path vs plain path: loss {loss_err:.2e}, "
                          f"grads {missed}")
     return loss_err, checks
@@ -621,17 +645,19 @@ def train_phase(g):
 
 def guided_step(batch, dtype, cfg, state, step1_state, *, plain):
     """Loss, trainable gradients and new BN running statistics of one guided
-    train step from ``state`` on the card, in ``dtype``, on the kernel path
-    or the plain path."""
+    train step from ``state`` on the card, in the compute ``dtype``, on the
+    kernel path or the plain path. Master weights and the batch are f32
+    (f64 for the f64 reference)."""
     import torch
 
     from nconv_tpu_torch.models import GuidedDepthNet
     from nconv_tpu_torch.training import GuidedTask
 
-    model = GuidedDepthNet(device="cuda", dtype=dtype).to(dtype)
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    model = GuidedDepthNet(device="cuda", dtype=dtype).to(wide)
     model.load_state_dict(state)
     task = GuidedTask(model.train(), step1_state=step1_state)
-    b = {k: v.to(dtype) for k, v in batch.items()}
+    b = {k: v.to(wide) for k, v in batch.items()}
     with plain_versions() if plain else contextlib.nullcontext():
         loss = task.loss(b, cfg=cfg)
         loss.backward()
@@ -640,17 +666,23 @@ def guided_step(batch, dtype, cfg, state, step1_state, *, plain):
     return loss.item(), grads, {n: t.double() for n, t in model.named_buffers()}
 
 
-def guided_phase(g):
-    """Phase 5; returns (per-call results, distinct calls of one train step
-    with their counts, launch counts of the fit, summary)."""
+def guided_phase(g, dtype, f32=None):
+    """Phase 5 (``dtype`` f32) or, given phase 5's ``carry`` as ``f32``,
+    phase 6 (bf16). Returns (per-call results, distinct calls of one train
+    step with their counts, launch counts of the fit, summary, carry: the
+    f64 reference step, the fit's losses and metrics, the step times)."""
     import numpy as np
     import torch
 
     from nconv_tpu_torch import kernels
     from nconv_tpu_torch.data import bench_batch
     from nconv_tpu_torch.models import GuidedDepthNet, NConvUNet
-    from nconv_tpu_torch.training import GuidedTask, OptimizerConfig, TrainConfig, Trainer
+    from nconv_tpu_torch.training import (
+        GuidedTask, OptimizerConfig, TrainConfig, Trainer, evaluate, make_guided_predict,
+    )
 
+    bf16 = dtype == torch.bfloat16
+    label = "guided bf16" if bf16 else "guided"
     batch_np = bench_batch(GUIDED_B, H, W)
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
     cfg = TrainConfig(epochs=TRAIN_FIT_STEPS, batch_size=GUIDED_B, log_every=0,
@@ -661,24 +693,34 @@ def guided_phase(g):
     # (a) every kernel call of one train step, at each distinct shape
     r = Recorder()
     with r.recording():
-        guided_step(batch, torch.float32, cfg, state, step1_state, plain=False)
-    results = check_all(r.calls, g, "guided")
+        guided_step(batch, dtype, cfg, state, step1_state, plain=False)
+    results = check_all(r.calls, g, label)
     sums = step_sums(r.calls, results, PER_GUIDED_STEP)
 
-    # (b) one train step: kernel path and plain path in f32, plain path in f64
-    loss_k, grads_k, stats_k = guided_step(batch, torch.float32, cfg, state, step1_state, plain=False)
-    loss_p, grads_p, stats_p = guided_step(batch, torch.float32, cfg, state, step1_state, plain=True)
-    loss_64, grads_64, _ = guided_step(batch, torch.float64, cfg, state, step1_state, plain=True)
-    loss_err, checks = grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, "guided")
+    # (b) one train step: kernel path and plain path in ``dtype``, and the
+    # plain path in f64 (phase 5's, which does not depend on ``dtype``)
+    loss_k, grads_k, stats_k = guided_step(batch, dtype, cfg, state, step1_state, plain=False)
+    loss_p, grads_p, stats_p = guided_step(batch, dtype, cfg, state, step1_state, plain=True)
+    if f32 is None:
+        ref64 = guided_step(batch, torch.float64, cfg, state, step1_state, plain=True)
+    else:
+        ref64 = f32["ref64"]
+    loss_64, grads_64, stats_64 = ref64
+    loss_bar, grad_bar, stats_bar = (BF16_LOSS_BAR, BF16_GRAD_BAR, BF16_STATS_BAR) if bf16 else (
+        LOSS_BAR, GRAD_BAR, STATS_BAR)
+    loss_err, checks = grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, label,
+                                   loss_bar=loss_bar, grad_bar=grad_bar)
     stats_err = {n: rel_rmse(stats_k[n], stats_p[n]) for n in stats_p if not n.startswith("step1.")}
+    stats_vs_64 = {n: rel_rmse(stats_k[n], stats_64[n]) for n in stats_err}
     worst = max(stats_err, key=stats_err.get)
-    log(f"[{'ok' if stats_err[worst] <= STATS_BAR else 'FAIL'}] guided BN running statistics kernel vs plain: "
-        f"worst {worst} {stats_err[worst]:.2e} (bar {STATS_BAR:.0e})")
-    if stats_err[worst] > STATS_BAR:
-        raise SystemExit(f"chip_smoke: guided running statistics: {worst} {stats_err[worst]:.2e}")
+    log(f"[{'ok' if stats_err[worst] <= stats_bar else 'FAIL'}] {label} BN running statistics kernel vs plain: "
+        f"worst {worst} {stats_err[worst]:.2e} (bar {stats_bar:.0e}); kernel vs f64 worst "
+        f"{max(stats_vs_64.values()):.2e}")
+    if stats_err[worst] > stats_bar:
+        raise SystemExit(f"chip_smoke: {label} running statistics: {worst} {stats_err[worst]:.2e}")
 
     # (c) five adamw steps through Trainer.fit on the one batch
-    model = GuidedDepthNet(device="cuda")
+    model = GuidedDepthNet(device="cuda", dtype=dtype)
     model.load_state_dict(state)
     trainer = Trainer(GuidedTask(model, step1_state=step1_state), cfg, log_fn=lambda m: None)
     kernels.reset_launch_counts()
@@ -689,22 +731,44 @@ def guided_phase(g):
     want = {k: (PER_GUIDED_STEP.get(k, 0) + PER_GUIDED_EVAL.get(k, 0)) * TRAIN_FIT_STEPS for k in kernels.LAUNCHES}
     falling = bool(np.all(np.isfinite(losses + fit.history["val_loss"])) and losses[-1] < losses[0])
     frozen = all(torch.equal(v, model.step1.state_dict()[k]) for k, v in step1_state.items())
-    log(f"[{'ok' if falling and frozen else 'FAIL'}] guided Trainer.fit {TRAIN_FIT_STEPS} adamw steps, "
+    masters = all(p.dtype == torch.float32 for p in model.parameters())
+    near_f32 = f32 is None or bool(np.allclose(losses, f32["losses"], rtol=FIT_RTOL, atol=0))
+    ok = falling and frozen and masters and near_f32
+    log(f"[{'ok' if ok else 'FAIL'}] {label} Trainer.fit {TRAIN_FIT_STEPS} adamw steps, "
         f"B={GUIDED_B} {H}x{W}: train losses {[round(v, 6) for v in losses]}, val losses "
         f"{[round(v, 6) for v in fit.history['val_loss']]}; step 1 bitwise unchanged {frozen}; "
-        f"launches {fit_counts}")
-    if not falling or not frozen:
-        raise SystemExit(f"chip_smoke: guided training: losses {losses}, step 1 unchanged {frozen}")
+        f"parameters f32 {masters}"
+        + ("" if f32 is None else f"; f32 fit {[round(v, 6) for v in f32['losses']]}, within "
+           f"{FIT_RTOL:.0%} {near_f32}")
+        + f"; launches {fit_counts}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {label} training: losses {losses}, step 1 unchanged {frozen}, "
+                         f"parameters f32 {masters}, within {FIT_RTOL:.0%} of f32 {near_f32}")
     if fit_counts != want:
-        raise SystemExit(f"chip_smoke: guided Trainer.fit launched {fit_counts}, expected {want}")
+        raise SystemExit(f"chip_smoke: {label} Trainer.fit launched {fit_counts}, expected {want}")
+    # (f) the metric set of the fitted model on the batch (phase 6 prints both)
+    metrics = evaluate(make_guided_predict(model), [batch_np])
+    if not (all(np.isfinite(v) for v in metrics.values())
+            and 0 <= metrics["delta1"] <= metrics["delta2"] <= metrics["delta3"] <= 1):
+        raise SystemExit(f"chip_smoke: {label}: metrics of the fitted model {metrics}")
+    if f32 is not None:
+        for tag, m in (("bf16", metrics), ("f32", f32["metrics"])):
+            log(f"[ok] evaluate(make_guided_predict) of the fitted {tag} model: "
+                + ", ".join(f"{k} {v:.6f}" for k, v in m.items()))
 
     # (d) launches per train step and (e) its time, kernel path then plain path
-    times = timed_steps(trainer, batch, PER_GUIDED_STEP, f"guided (B={GUIDED_B}, {H}x{W}, f32, adamw)")
-    per_step = {k: c for k, c in r.calls.items() if k[0] in GUIDED_KERNELS}
+    name = "bf16" if bf16 else "f32"
+    times = timed_steps(trainer, batch, PER_GUIDED_STEP, f"{label} (B={GUIDED_B}, {H}x{W}, {name}, adamw)")
+    if f32 is not None:
+        log(f"    {label} step p50 / p90 {times['kernel']['p50_ms']:.3f} / {times['kernel']['p90_ms']:.3f} ms "
+            f"beside the f32 step's {f32['step_ms']['kernel']['p50_ms']:.3f} / "
+            f"{f32['step_ms']['kernel']['p90_ms']:.3f} ms (this run)")
+    per_step = {k: c for k, c in r.calls.items() if k[0] in (BF16_KERNELS if bf16 else GUIDED_KERNELS)}
     summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=checks, stats=stats_err,
-                   fit_losses=losses, fit_val_losses=fit.history["val_loss"], fit_counts=fit_counts,
-                   step_ms=times, kernel_sums_per_step=sums)
-    return results, per_step, fit_counts, summary
+                   stats_vs_f64=stats_vs_64, fit_losses=losses, fit_val_losses=fit.history["val_loss"],
+                   fit_counts=fit_counts, step_ms=times, kernel_sums_per_step=sums, metrics=metrics)
+    carry = dict(ref64=ref64, losses=losses, step_ms=times, metrics=metrics)
+    return results, per_step, fit_counts, summary, carry
 
 
 def main() -> int:
@@ -816,22 +880,32 @@ def main() -> int:
     # -- 4. step-1 training
     train_results, train_calls, train_counts, train_summary = train_phase(g)
 
-    # -- 5. guided (step-2) training
-    guided_results, guided_calls, guided_counts, guided_summary = guided_phase(g)
+    # -- 5. guided (step-2) training, f32
+    guided_results, guided_calls, guided_counts, guided_summary, carry = guided_phase(g, torch.float32)
 
-    # -- report: one entry per kernel; sums per two-stream frame over the
-    # mixed main path for the serving kernels, per step-1 train step for
+    # -- 6. guided training in the mixed schedule
+    bf16_results, bf16_calls, bf16_counts, bf16_summary, _ = guided_phase(g, torch.bfloat16, carry)
+
+    # -- report: one entry per kernel form; sums per two-stream frame over
+    # the mixed main path for the serving kernels, per step-1 train step for
     # K2's K x K form and K5, per guided train step for the guided backward
-    # forms (launches: the serving run's, and each fit's)
+    # forms, per bf16 guided train step for their bf16 forms (launches: the
+    # serving run's, and each fit's)
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke_calls.json").write_text(json.dumps(
         {"card": smi, "engines": summary, "training": train_summary, "guided_training": guided_summary,
-         "calls": [{"key": repr(k), **v} for k, v in {**results, **train_results, **guided_results}.items()]},
+         "guided_training_bf16": bf16_summary,
+         "calls": [{"key": repr(k), **v}
+                   for k, v in {**results, **train_results, **guided_results, **bf16_results}.items()]},
         indent=1))
     entries = []
-    for kname, (src, replaces) in KERNELS.items():
-        if kname in TRAIN_KERNELS:
+    forms = [(k, None) for k in KERNELS] + [(k, "bf16") for k in BF16_KERNELS]
+    for kname, form in forms:
+        src, replaces = KERNELS[kname]
+        if form:
+            per, res, launches = bf16_calls, bf16_results, bf16_counts[kname]
+        elif kname in TRAIN_KERNELS:
             per, res, launches = train_calls, train_results, train_counts[kname]
         elif kname in GUIDED_KERNELS:
             per, res, launches = guided_calls, guided_results, guided_counts[kname]
@@ -843,8 +917,8 @@ def main() -> int:
         bound = tot("bound_ms")
         ops_share = sum(r["bound_ms"] * per[k] for k, r in calls if r["bound_by"] == "operations")
         entries.append(dict(
-            name=kname, route="cuda", source=src, replaces=replaces,
-            launches=launches,
+            name=kname + ("_bf16" if form else ""), route="cuda", source=src, replaces=replaces,
+            dtype="/".join(sorted({r["in_dtype"] for _, r in calls})), launches=launches,
             max_abs_err=max(r["abs_err"] for _, r in calls),
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=bound,
             bound_by="operations" if ops_share > bound / 2 else "bytes",

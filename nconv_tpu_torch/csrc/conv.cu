@@ -1,8 +1,9 @@
 // K2: direct 3x3 pad-1 convolution, stride 1 or 2, + bias + optional ReLU,
 // with an optional fused residual epilogue relu(conv3x3(x) + b) + conv1x1(x)
 // (the 1x1 shortcut at the same stride reads the 3x3 window's centre tap);
-// and a K x K f32 form without bias for the training backward (below,
-// nct_conv_kxk): K in {1, 3, 5} at stride 1, and 4x4 at stride 2.
+// and a K x K form without bias for the training backward (below,
+// nct_conv_kxk): K in {1, 3, 5} at stride 1, and 4x4 at stride 2, f32 in
+// and out, or bf16 in and out for the 3x3 and 4x4 forms.
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel in its stride-1,
 // residual_channels, multi-part, uint8-decode and stride-2 (lane_stride2 /
@@ -135,7 +136,7 @@ static int dispatch_stride(const ConvArgs& a, int stride, bool res,
 }
 
 // ---------------------------------------------------------------------------
-// K x K form, f32 in and out, no bias and no ReLU, pad in [0, K-1], stride S:
+// K x K form, no bias and no ReLU, pad in [0, K-1], stride S:
 //  * stride 1, K in {1, 3, 5}: the input-gradient conv of a stride-1 conv
 //    (the cotangent against the flipped, in/out-transposed kernel), which
 //    the TPU ran on the same _kernel through transpose_conv_bhcw
@@ -148,7 +149,11 @@ static int dispatch_stride(const ConvArgs& a, int stride, bool res,
 // staging as the 3x3 form: an input tile of K_CIC channels with its halo and
 // the matching weights in shared memory, COT output channels of one pixel
 // per thread in registers. The input is one part read through its strides,
-// so a crop is a view.
+// so a crop is a view. Storage type T (f32, or bf16 for the mixed schedule's
+// backward, where the JAX backwards cast the cotangent to the kernel's
+// dtype): loaded through load_f<T> into the same f32 tiles, summed in f32,
+// the output rounded to T once, as the forward K2 does for bf16. So a bf16
+// call equals the f32 form run on the widened input, rounded.
 // ---------------------------------------------------------------------------
 
 constexpr int K_TW = 32, K_TH = 4, K_CIC = 8, K_THREADS = K_TW * K_TH;
@@ -157,10 +162,10 @@ struct ConvKArgs {
   Part x;  // (B, cin, H, W), any strides
   int B, H, W, cin, ho, wo, cout, pad;
   const float* w;  // (cout, cin, K, K)
-  float* out;      // (B, cout, ho, wo), contiguous
+  void* out;       // (B, cout, ho, wo), contiguous, storage type T
 };
 
-template <int K, int S, int COT>
+template <typename T, int K, int S, int COT>
 __global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
   constexpr int IW = (K_TW - 1) * S + K, IH = (K_TH - 1) * S + K;
   __shared__ float xs[K_CIC][IH][IW];
@@ -181,8 +186,8 @@ __global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
     for (int i = threadIdx.x; i < K_CIC * IH * IW; i += K_THREADS) {
       const int cc = i / (IH * IW), r = i % (IH * IW);
       const int yy = r / IW, xx = r % IW, c = c0 + cc;
-      xs[cc][yy][xx] = c < a.cin ? load_parts<float>(&a.x, 1, b, c, iy0 + yy,
-                                                     ix0 + xx, a.H, a.W)
+      xs[cc][yy][xx] = c < a.cin ? load_parts<T>(&a.x, 1, b, c, iy0 + yy,
+                                                 ix0 + xx, a.H, a.W)
                                  : 0.f;
     }
     for (int i = threadIdx.x; i < K_CIC * K * K * COT; i += K_THREADS) {
@@ -209,26 +214,27 @@ __global__ void __launch_bounds__(K_THREADS) convkxk_kernel(const ConvKArgs a) {
   }
 
   if (oy >= a.ho || ox >= a.wo) return;
+  T* out = static_cast<T*>(a.out);
 #pragma unroll
   for (int j = 0; j < COT; ++j) {
     const int co = co0 + j;
     if (co < a.cout)
-      a.out[(((long long)b * a.cout + co) * a.ho + oy) * a.wo + ox] = acc[j];
+      out[(((long long)b * a.cout + co) * a.ho + oy) * a.wo + ox] = from_f<T>(acc[j]);
   }
 }
 
-template <int K, int S, int COT>
+template <typename T, int K, int S, int COT>
 static int launch_kxk(const ConvKArgs& a, cudaStream_t st) {
   const dim3 grid((a.wo + K_TW - 1) / K_TW, (a.ho + K_TH - 1) / K_TH,
                   a.B * ((a.cout + COT - 1) / COT));
-  void (*k)(const ConvKArgs) = convkxk_kernel<K, S, COT>;
+  void (*k)(const ConvKArgs) = convkxk_kernel<T, K, S, COT>;
   NCT_LAUNCH(k, grid, dim3(K_THREADS), 0, st, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int K, int S>
+template <typename T, int K, int S>
 static int dispatch_kxk(const ConvKArgs& a, cudaStream_t st) {
-  return a.cout >= 16 ? launch_kxk<K, S, 16>(a, st) : launch_kxk<K, S, 8>(a, st);
+  return a.cout >= 16 ? launch_kxk<T, K, S, 16>(a, st) : launch_kxk<T, K, S, 8>(a, st);
 }
 
 }  // namespace nct
@@ -267,14 +273,15 @@ extern "C" int nct_conv3x3(const void* const* part_ptrs,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Plain C entry of the K x K f32 form: one input part (pointer + 6 metadata
-// values, see nct::fill_parts), (ksize, stride) in {1, 3, 5} x {1} or
-// (4, 2), pad in [0, ksize - 1], output (ho, wo) = ((H, W) + 2 pad - ksize)
-// / stride + 1.
+// Plain C entry of the K x K form: one input part (pointer + 6 metadata
+// values, see nct::fill_parts) of storage type dtype, which the output
+// shares; (ksize, stride) in {1, 3, 5} x {1} or (4, 2) for F32, (3, 1) or
+// (4, 2) for BF16; pad in [0, ksize - 1], output (ho, wo) = ((H, W) + 2 pad
+// - ksize) / stride + 1.
 extern "C" int nct_conv_kxk(const void* const* x_ptr, const long long* x_meta,
-                            int B, int H, int W, int cin, int ho, int wo,
-                            int cout, int ksize, int stride, int pad,
-                            const float* w, float* out, void* stream) {
+                            int dtype, int B, int H, int W, int cin, int ho,
+                            int wo, int cout, int ksize, int stride, int pad,
+                            const float* w, void* out, void* stream) {
   using namespace nct;
   if (pad < 0 || pad > ksize - 1 || stride < 1 ||
       H + 2 * pad < ksize || W + 2 * pad < ksize ||
@@ -286,14 +293,18 @@ extern "C" int nct_conv_kxk(const void* const* x_ptr, const long long* x_meta,
   a.B = B, a.H = H, a.W = W, a.cin = cin, a.ho = ho, a.wo = wo;
   a.cout = cout, a.pad = pad, a.w = w, a.out = out;
   auto st = static_cast<cudaStream_t>(stream);
-  if (stride == 1) {
+  if (dtype == F32 && stride == 1) {
     switch (ksize) {
-      case 1: return dispatch_kxk<1, 1>(a, st);
-      case 3: return dispatch_kxk<3, 1>(a, st);
-      case 5: return dispatch_kxk<5, 1>(a, st);
+      case 1: return dispatch_kxk<float, 1, 1>(a, st);
+      case 3: return dispatch_kxk<float, 3, 1>(a, st);
+      case 5: return dispatch_kxk<float, 5, 1>(a, st);
     }
-  } else if (stride == 2 && ksize == 4) {
-    return dispatch_kxk<4, 2>(a, st);
+  } else if (dtype == F32 && stride == 2 && ksize == 4) {
+    return dispatch_kxk<float, 4, 2>(a, st);
+  } else if (dtype == BF16 && stride == 1 && ksize == 3) {
+    return dispatch_kxk<__nv_bfloat16, 3, 1>(a, st);
+  } else if (dtype == BF16 && stride == 2 && ksize == 4) {
+    return dispatch_kxk<__nv_bfloat16, 4, 2>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

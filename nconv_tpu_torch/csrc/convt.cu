@@ -21,8 +21,8 @@
 // pixel in registers.
 //
 // Below, a second form: the 3x3/s2/p1 transposed conv with output_padding 1
-// (f32, no bias), the input gradient of a 3x3 stride-2 conv (nct_conv_
-// transpose3x3s2).
+// (no bias; f32, or bf16 in and out), the input gradient of a 3x3 stride-2
+// conv (nct_conv_transpose3x3s2).
 #include "common.cuh"
 
 namespace nct {
@@ -122,8 +122,10 @@ static int dispatch_cot(const ConvTArgs& a, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// 3x3/s2/p1 transposed conv, output_padding 1, f32, no bias, weight
-// (cin, cout, 3, 3) (the forward conv's OIHW kernel):
+// 3x3/s2/p1 transposed conv, output_padding 1, no bias, weight (cin, cout,
+// 3, 3) (the forward conv's OIHW kernel), storage type T for the input and
+// the output (f32, or bf16 in the mixed schedule, where _s2_res_bwd casts
+// the cotangent to the kernel's dtype):
 //
 //   out[co, y, x] = sum over ci and taps with y = 2i - 1 + ky,
 //                   x = 2j - 1 + kx of g[ci, i, j] * w[ci, co, ky, kx]
@@ -143,7 +145,8 @@ static int dispatch_cot(const ConvTArgs& a, cudaStream_t st) {
 // so no thread skips a tap and no warp diverges on the output parity. A
 // block stages a (TH+1) x (TW+1) tile of g for Q_CIC channels and their
 // weights in shared memory and keeps 4 x COT outputs in registers. Bound:
-// 9 * cout FMAs per input value read, f32 CUDA cores.
+// 9 * cout FMAs per input value read, f32 CUDA cores. A bf16 input widens on
+// the load into the same f32 tile and each output rounds to bf16 once.
 // ---------------------------------------------------------------------------
 
 constexpr int Q_TW = 32, Q_TH = 8, Q_CIC = 16, Q_COT = 16, Q_THREADS = Q_TW * Q_TH;
@@ -152,9 +155,10 @@ struct ConvT3Args {
   Part x;  // (B, cin, h, w), any strides
   int B, h, w, cin, cout;
   const float* wt;  // (cin, cout, 3, 3)
-  float* out;       // (B, cout, 2h, 2w), contiguous
+  void* out;        // (B, cout, 2h, 2w), contiguous, storage type T
 };
 
+template <typename T>
 __global__ void __launch_bounds__(Q_THREADS) convt3x3s2_kernel(const ConvT3Args a) {
   __shared__ float xs[Q_CIC][Q_TH + 1][Q_TW + 1];
   __shared__ __align__(16) float ws[Q_CIC * 9][Q_COT];
@@ -176,7 +180,7 @@ __global__ void __launch_bounds__(Q_THREADS) convt3x3s2_kernel(const ConvT3Args 
     for (int t = threadIdx.x; t < Q_CIC * (Q_TH + 1) * (Q_TW + 1); t += Q_THREADS) {
       const int cc = t / ((Q_TH + 1) * (Q_TW + 1)), r = t % ((Q_TH + 1) * (Q_TW + 1));
       const int yy = r / (Q_TW + 1), xx = r % (Q_TW + 1), c = c0 + cc;
-      xs[cc][yy][xx] = c < a.cin ? load_parts<float>(&a.x, 1, b, c, i0 + yy, j0 + xx, a.h, a.w)
+      xs[cc][yy][xx] = c < a.cin ? load_parts<T>(&a.x, 1, b, c, i0 + yy, j0 + xx, a.h, a.w)
                                  : 0.f;
     }
     for (int t = threadIdx.x; t < Q_CIC * 9 * Q_COT; t += Q_THREADS) {
@@ -209,11 +213,11 @@ __global__ void __launch_bounds__(Q_THREADS) convt3x3s2_kernel(const ConvT3Args 
   for (int c = 0; c < Q_COT; ++c) {
     const int co = co0 + c;
     if (co < a.cout) {
-      float* o = a.out + (((long long)b * a.cout + co) * ho + 2 * i) * wo + 2 * j;
-      o[0] = acc[0][c];
-      o[1] = acc[1][c];
-      o[wo] = acc[2][c];
-      o[wo + 1] = acc[3][c];
+      T* o = static_cast<T*>(a.out) + (((long long)b * a.cout + co) * ho + 2 * i) * wo + 2 * j;
+      o[0] = from_f<T>(acc[0][c]);
+      o[1] = from_f<T>(acc[1][c]);
+      o[wo] = from_f<T>(acc[2][c]);
+      o[wo + 1] = from_f<T>(acc[3][c]);
     }
   }
 }
@@ -241,22 +245,24 @@ extern "C" int nct_conv_transpose4x4s2(const void* const* part_ptrs,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Plain C entry of the 3x3/s2 form: one f32 input part (B, cin, h, w) (see
-// nct::fill_parts), weight (cin, cout, 3, 3), output (B, cout, 2h, 2w).
+// Plain C entry of the 3x3/s2 form: one input part (B, cin, h, w) (see
+// nct::fill_parts) of storage type dtype (F32 or BF16), which the output
+// (B, cout, 2h, 2w) shares; weight (cin, cout, 3, 3) f32.
 extern "C" int nct_conv_transpose3x3s2(const void* const* x_ptr,
-                                       const long long* x_meta, int B, int h,
-                                       int w, int cin, int cout,
-                                       const float* wt, float* out,
+                                       const long long* x_meta, int dtype,
+                                       int B, int h, int w, int cin, int cout,
+                                       const float* wt, void* out,
                                        void* stream) {
   using namespace nct;
-  if (B < 1 || h < 1 || w < 1 || cin < 1 || cout < 1)
+  if (B < 1 || h < 1 || w < 1 || cin < 1 || cout < 1 || (dtype != F32 && dtype != BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   ConvT3Args a{};
   fill_parts(&a.x, x_ptr, x_meta, 1);
   a.B = B, a.h = h, a.w = w, a.cin = cin, a.cout = cout, a.wt = wt, a.out = out;
   const dim3 grid((w + Q_TW - 1) / Q_TW, (h + Q_TH - 1) / Q_TH,
                   B * ((cout + Q_COT - 1) / Q_COT));
-  void (*k)(const ConvT3Args) = convt3x3s2_kernel;
+  void (*k)(const ConvT3Args) =
+      dtype == F32 ? convt3x3s2_kernel<float> : convt3x3s2_kernel<__nv_bfloat16>;
   NCT_LAUNCH(k, grid, dim3(Q_THREADS), 0, static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }

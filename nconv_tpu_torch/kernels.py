@@ -52,11 +52,11 @@ _SIGNATURES = {
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
     "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
     "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
-    "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
+    "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad_tiles": [I, I, I],
-    "nct_conv_transpose3x3s2": [P, P, I, I, I, I, I, P, P, P],
-    "nct_wgrad": [P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
+    "nct_conv_transpose3x3s2": [P, P, I, I, I, I, I, I, P, P, P],
+    "nct_wgrad": [P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_wgrad_slices": [I, I, I, I, I],
 }
 

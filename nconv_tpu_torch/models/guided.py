@@ -4,14 +4,17 @@ encoder pyramid. Two input streams are batch-concatenated through shared
 weights.
 
 Precision: ``dtype`` is the feature-conv compute dtype (bf16 for the mixed
-schedule). The feature convs' weights are rounded to it once, at
-construction and whenever a state dict is loaded. Step 1 and every depth
-tensor stay f32, and the per-scale residual adds promote the head's output
-back to f32.
+schedule). Parameters stay f32 masters, and each conv reads a copy cast to
+``dtype`` (see :mod:`.layers`); only a model built with ``fold_bn=True``
+(for serving) rounds its feature convs' weights once, at construction and
+whenever a state dict is loaded. Step 1, every depth tensor and the BN
+statistics stay f32, and the per-scale residual adds promote the head's
+output back to f32.
 
-Training (step 2, f32): with grad enabled the convs run through their
-autograd Functions and BN follows ``train()`` / ``eval()``; step 1 is
-frozen and always runs its fused serving graph under ``torch.no_grad()``.
+Training (step 2, f32 or the mixed schedule): with grad enabled the convs
+run through their autograd Functions and BN follows ``train()`` /
+``eval()``; step 1 is frozen and always runs its fused serving graph under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -158,8 +161,9 @@ class GuidedDepthNet(nn.Module):
         self.fuse1 = FusionResolutionBlock(64, 64, 4, 64, fold_bn=fold_bn, **kw)
         self.fuse2 = FusionResolutionBlock(64, 32, 2, 64, fold_bn=fold_bn, **kw)
         self.fuse3 = FusionResolutionBlock(32, 32, 1, 32, fold_bn=fold_bn, **kw)
-        round_weights_(self, dtype)  # step 1 holds NConv2d weights only, left f32
-        self.register_load_state_dict_post_hook(lambda m, _keys: round_weights_(m, m.dtype))
+        if fold_bn:  # step 1 holds NConv2d weights only, left f32
+            round_weights_(self, dtype)
+            self.register_load_state_dict_post_hook(lambda m, _keys: round_weights_(m, m.dtype))
         self.eval()
 
     @property

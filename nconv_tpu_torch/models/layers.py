@@ -3,17 +3,21 @@
 Every conv takes its input as a list of parts (a logical channel concat
 that is never materialized) and runs in a compute ``dtype``: parts are
 rounded to it, arithmetic is f32, the output is stored in it. Weights are
-used as they are held: :class:`~.guided.GuidedDepthNet` rounds them to its
-compute dtype once, when it loads them (:func:`round_weights_`).
+f32 masters: each call hands the conv a copy cast to the compute dtype
+inside the autograd graph (:meth:`_ConvParams.params`), as the JAX package
+casts its f32 params on every call, so in bf16 the weight gradient is
+rounded to bf16 and widened back to f32. A model built for serving with BN
+folded instead rounds its weights once, when it loads them
+(:func:`round_weights_`), and the convs read them as they are held.
 Blocks built with ``fold_bn=True`` hold BatchNorm already folded into the
 conv (see :mod:`.fold`) and run as one fused kernel each; unfolded blocks
 run conv, :class:`_ChannelBN` and ReLU in turn.
 
 Every conv but the folded residual form runs through its autograd
-Function (:mod:`..ops.conv_autograd`), whose forward is the fused op; the
-backward is f32 (training). :class:`_ChannelBN` follows ``self.training``:
-batch statistics and running-average updates in train mode, the running
-statistics in eval mode.
+Function (:mod:`..ops.conv_autograd`), whose forward is the fused op.
+:class:`_ChannelBN` follows ``self.training``: batch statistics and
+running-average updates in train mode, the running statistics in eval
+mode.
 """
 from __future__ import annotations
 
@@ -43,19 +47,36 @@ def _uniform(shape, bound, generator, device):
     return nn.Parameter(((torch.rand(shape, generator=generator) * 2 - 1) * bound).to(device))
 
 
-class Conv(nn.Module):
-    """Conv weights with torch's default init: U(+-1/sqrt(fan_in)) for the
-    kernel (cout, cin, k, k) and the bias."""
+class _ConvParams(nn.Module):
+    """A conv kernel ``shape`` and its bias (cout,), f32, with torch's
+    default init U(+-1/sqrt(fan_in))."""
+
+    def __init__(self, shape, fan_in, cout, bias, generator, device):
+        super().__init__()
+        bound = 1.0 / math.sqrt(fan_in)
+        self.weight = _uniform(shape, bound, generator, device)
+        self.bias = _uniform((cout,), bound, generator, device) if bias else None
+        self.held_at = None  # the dtype round_weights_ rounded them to
+
+    def params(self, dtype):
+        """(weight, bias) as the conv reads them in ``dtype``: as held when
+        :func:`round_weights_` rounded them to ``dtype``, else cast to it
+        (a no-op in f32 and f64)."""
+        if self.held_at == dtype:
+            return self.weight, self.bias
+        return self.weight.to(dtype), None if self.bias is None else self.bias.to(dtype)
+
+
+class Conv(_ConvParams):
+    """Conv weights (cout, cin, k, k) and bias."""
 
     def __init__(self, cin, cout, kernel_size=3, *, bias=True, generator, device):
-        super().__init__()
-        bound = 1.0 / math.sqrt(cin * kernel_size * kernel_size)
-        self.weight = _uniform((cout, cin, kernel_size, kernel_size), bound, generator, device)
-        self.bias = _uniform((cout,), bound, generator, device) if bias else None
+        super().__init__((cout, cin, kernel_size, kernel_size), cin * kernel_size * kernel_size, cout,
+                         bias, generator, device)
 
     def forward(self, x, *, dtype, stride=1, relu=False, shortcut=None):
         """3x3 pad-1 conv of ``x`` (a tensor or a list of parts)."""
-        return _conv3x3(_to(_parts(x), dtype), self.weight, self.bias, dtype=dtype,
+        return _conv3x3(_to(_parts(x), dtype), *self.params(dtype), dtype=dtype,
                         stride=stride, relu=relu, shortcut=shortcut)
 
 
@@ -68,18 +89,15 @@ def _conv3x3(parts, weight, bias, *, dtype, stride=1, relu=False, shortcut=None)
                    out_dtype=dtype)
 
 
-class ConvTranspose(nn.Module):
-    """4x4/s2/p1 transpose-conv weights (cin, cout, 4, 4), torch default init
-    with fan_in = 16 * cin."""
+class ConvTranspose(_ConvParams):
+    """4x4/s2/p1 transpose-conv weights (cin, cout, 4, 4) (fan_in = 16 *
+    cin) and bias."""
 
     def __init__(self, cin, cout, *, bias=True, generator, device):
-        super().__init__()
-        bound = 1.0 / math.sqrt(16 * cin)
-        self.weight = _uniform((cin, cout, 4, 4), bound, generator, device)
-        self.bias = _uniform((cout,), bound, generator, device) if bias else None
+        super().__init__((cin, cout, 4, 4), 16 * cin, cout, bias, generator, device)
 
     def forward(self, x, *, dtype, relu):
-        return conv_transpose4x4s2_trainable(_to(_parts(x), dtype), self.weight, self.bias, relu=relu)
+        return conv_transpose4x4s2_trainable(_to(_parts(x), dtype), *self.params(dtype), relu=relu)
 
 
 class _ChannelBN(nn.Module):
@@ -183,10 +201,10 @@ class RGBEncoder(nn.Module):
         self.shortcut = Conv(cin, cout, 1, bias=False, generator=generator, device=device)
 
     def forward(self, x, *, dtype):
-        sc = self.shortcut.weight
+        sc, _ = self.shortcut.params(dtype)
         if self.fold_bn:
             return self.conv(x, dtype=dtype, stride=self.stride, relu=True, shortcut=sc)
-        w, b = stack_shortcut(self.conv.weight, self.conv.bias, sc)
+        w, b = stack_shortcut(*self.conv.params(dtype), sc)
         y = _conv3x3(_to(_parts(x), dtype), w, b, dtype=dtype, stride=self.stride)
         f = self.conv.weight.shape[0]
         return torch.relu(self.bn(y[:, :f])) + y[:, f:]
@@ -206,22 +224,22 @@ class Conv3x3Head(nn.Module):
 def conv_chain(x, first: ConvBlock, second: ConvBlock, *, dtype):
     """Two ConvBlocks as one kernel launch (intermediate kept on chip);
     forward only (K4 has no backward)."""
-    c1, c2 = first.conv, second.conv
-    return conv3x3_chain2(x.to(dtype).contiguous(), c1.weight, c1.bias, c2.weight, c2.bias)
+    (w1, b1), (w2, b2) = first.conv.params(dtype), second.conv.params(dtype)
+    return conv3x3_chain2(x.to(dtype).contiguous(), w1, b1, w2, b2)
 
 
 @torch.no_grad()
 def round_weights_(module: nn.Module, dtype: torch.dtype) -> None:
-    """Round, in place, every :class:`Conv` and :class:`ConvTranspose`
-    weight and bias under ``module`` to ``dtype``'s values; they stay f32
-    tensors, which the convs read as they are. A no-op in f32 (the only
-    training precision so far) and in f64 (a reference run); bf16 training
-    must keep f32 master weights and round a copy for the convs, not the
-    weights in place."""
+    """Round, in place, every conv weight and bias under ``module`` to
+    ``dtype``'s values; they stay f32 tensors, which the convs then read as
+    they are (no per-call cast). For a model built for serving with BN
+    folded only: a model that trains keeps unrounded f32 masters. A no-op
+    in f32 and f64."""
     if dtype in (torch.float32, torch.float64):
         return
     for m in module.modules():
-        if isinstance(m, (Conv, ConvTranspose)):
+        if isinstance(m, _ConvParams):
             for p in (m.weight, m.bias):
                 if p is not None:
                     p.copy_(p.to(dtype).float())
+            m.held_at = dtype

@@ -14,7 +14,8 @@ Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
   * :func:`conv3x3_chain2` — K4 (``csrc/chain.cu``): two 3x3 conv + bias +
     ReLU stages with the intermediate kept on chip.
 
-Gradients, for the training backward (f32):
+Gradients, for the training backward (f32, and bf16 operands in the mixed
+schedule except K5):
   * :func:`conv2d_input_grad` — the input cotangent of a stride-1 conv, a
     conv of the output cotangent with the flipped, in/out-transposed kernel
     on K2's K x K stride-1 form (``csrc/conv.cu``, ``nct_conv_kxk``);
@@ -32,8 +33,11 @@ Gradients, for the training backward (f32):
 
 All arithmetic is f32: weights and bias are taken at the values they hold
 (the caller rounds them to the compute dtype), inputs are widened on load,
-and the output is rounded once to its storage type. The plain versions
-keep float64 inputs in float64, as a reference for the f32 paths.
+and the output is rounded once to its storage type. An input gradient comes
+out in its cotangent's storage type; a weight gradient in f32 (the caller
+rounds it to the weight's dtype). A gradient call's tensors share one dtype,
+or it raises. The plain versions keep float64 inputs in float64, as a
+reference for the f32 paths.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 from .. import kernels
 
 _FLOAT_OUT = (torch.float32, torch.bfloat16)
+_GRAD_DTYPES = (torch.float32, torch.bfloat16, torch.float64)  # f64: plain versions only
 
 
 def conv2d(x, weight, bias=None, *, stride=1, padding=0, dilation=1, groups=1):
@@ -70,6 +75,15 @@ def _wide(t):
 
 def _f32(t):
     return None if t is None else t.detach().float().contiguous()
+
+
+def _grad_dtype(*ts):
+    """The one dtype that a gradient call's tensors share; raises on mixed
+    or unsupported dtypes."""
+    dts = {t.dtype for t in ts}
+    if len(dts) != 1 or not dts <= set(_GRAD_DTYPES):
+        raise TypeError(f"a gradient call takes one of {_GRAD_DTYPES} throughout; got {sorted(map(str, dts))}")
+    return dts.pop()
 
 
 def _check_same_geometry(parts):
@@ -264,10 +278,26 @@ def _input_grad_conv(cot, weight, padding):
     return cot, w_t, pad
 
 
+def _check_kxk(x, weight, padding, stride):
+    """Raise where K2's K x K form (and so its plain version) does not take
+    ``x`` conv ``weight`` at ``padding`` and ``stride``; returns the output
+    size."""
+    dt = _grad_dtype(x, weight)
+    _, cin, h, w = x.shape
+    cout, k = weight.shape[0], weight.shape[-1]
+    forms = ((3, 1), (4, 2)) if dt == torch.bfloat16 else ((1, 1), (3, 1), (5, 1), (4, 2))
+    if (tuple(weight.shape) != (cout, cin, k, k) or (k, stride) not in forms
+            or not 0 <= padding < k or min(h, w) + 2 * padding < k):
+        raise ValueError(f"K2 k x k form takes (k, stride) in {forms} for {dt}, pad in [0, k); "
+                         f"got weight {tuple(weight.shape)}, x {tuple(x.shape)}, stride {stride}, "
+                         f"pad {padding}")
+    return (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+
+
 def conv2d_input_grad(cot: torch.Tensor, weight: torch.Tensor, padding: int) -> torch.Tensor:
     """Input cotangent (B, cin, H, W) of ``conv2d(x, weight, padding=padding)``
     (stride 1, weight (cout, cin, k, k)) from its output cotangent ``cot``
-    (B, cout, Ho, Wo). f32."""
+    (B, cout, Ho, Wo), in ``cot``'s dtype (f32, or bf16 for k = 3)."""
     if not kernels.on_card(cot, weight):
         return conv2d_input_grad_plain(cot, weight, padding)
     cot, w_t, pad = _input_grad_conv(cot, weight, padding)
@@ -277,14 +307,15 @@ def conv2d_input_grad(cot: torch.Tensor, weight: torch.Tensor, padding: int) -> 
 def conv2d_input_grad_plain(cot, weight, padding):
     """The plain PyTorch version of :func:`conv2d_input_grad`."""
     cot, w_t, pad = _input_grad_conv(cot, weight, padding)
-    return conv2d(kernels.widen(cot), kernels.widen(w_t), padding=pad)
+    _check_kxk(cot, w_t, pad, 1)
+    return conv2d(kernels.widen(cot), kernels.widen(w_t), padding=pad).to(cot.dtype)
 
 
 def conv_transpose4x4s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Input cotangent (B, cin, H, W) of :func:`conv_transpose4x4s2`
     (weight (cin, cout, 4, 4)) from its output cotangent ``cot``
     (B, cout, 2H, 2W): the 4x4 stride-2 pad-1 conv of ``cot`` with the
-    weight read as OIHW, O = cin (no flip). f32."""
+    weight read as OIHW, O = cin (no flip). In ``cot``'s dtype."""
     if not kernels.on_card(cot, weight):
         return conv_transpose4x4s2_input_grad_plain(cot, weight)
     return _conv_kxk_kernel(cot, weight, 1, 2)
@@ -292,38 +323,41 @@ def conv_transpose4x4s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> t
 
 def conv_transpose4x4s2_input_grad_plain(cot, weight):
     """The plain PyTorch version of :func:`conv_transpose4x4s2_input_grad`."""
-    return conv2d(kernels.widen(cot), kernels.widen(weight), stride=2, padding=1)
+    _check_kxk(cot, weight, 1, 2)
+    return conv2d(kernels.widen(cot), kernels.widen(weight), stride=2, padding=1).to(cot.dtype)
 
 
 def _conv_kxk_kernel(x, weight, padding, stride):
     kernels.no_graph("conv_kxk", x, weight)
+    ho, wo = _check_kxk(x, weight, padding, stride)
+    if x.dtype not in _FLOAT_OUT:
+        raise TypeError(f"K2 k x k form takes float32 or bfloat16, got {x.dtype}")
     b, cin, h, w = x.shape
     cout, k = weight.shape[0], weight.shape[-1]
-    if (tuple(weight.shape) != (cout, cin, k, k) or (k, stride) not in ((1, 1), (3, 1), (5, 1), (4, 2))
-            or not 0 <= padding < k or min(h, w) + 2 * padding < k):
-        raise ValueError(f"K2 k x k form takes (k, stride) in (1|3|5, 1) or (4, 2), pad in [0, k); "
-                         f"got weight {tuple(weight.shape)}, x {tuple(x.shape)}, stride {stride}, "
-                         f"pad {padding}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"K2 k x k form takes float32, got {x.dtype}")
-    ho, wo = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
     w32 = _f32(weight)
-    out = torch.empty((b, cout, ho, wo), device=x.device)
+    out = torch.empty((b, cout, ho, wo), device=x.device, dtype=x.dtype)
     ptrs, meta = kernels.part_args([x], [False])
     code = kernels.lib().nct_conv_kxk(
-        ptrs, meta, b, h, w, cin, ho, wo, cout, k, stride, padding, w32.data_ptr(),
-        out.data_ptr(), kernels.stream_of(out),
+        ptrs, meta, kernels.DTYPE_CODE[x.dtype], b, h, w, cin, ho, wo, cout, k, stride, padding,
+        w32.data_ptr(), out.data_ptr(), kernels.stream_of(out),
     )
     kernels.check(code, "conv_kxk kernel")
     kernels.LAUNCHES["conv_kxk" if stride == 1 else "conv4x4s2"] += 1
     return out
 
 
+def _check_t3(cot, weight):
+    dt = _grad_dtype(cot, weight)
+    if weight.dim() != 4 or tuple(weight.shape) != (cot.shape[1], weight.shape[1], 3, 3):
+        raise ValueError(f"K3 3x3/s2 form: weight {tuple(weight.shape)} does not fit {tuple(cot.shape)}")
+    return dt
+
+
 def conv3x3s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Input cotangent (B, cin, 2h, 2w) of a 3x3 stride-2 pad-1 conv of an
     even-sized input (weight (cout, cin, 3, 3)) from its output cotangent
     ``cot`` (B, cout, h, w): the 3x3/s2/p1 transposed conv with
-    output_padding 1. f32."""
+    output_padding 1. In ``cot``'s dtype."""
     if not kernels.on_card(cot, weight):
         return conv3x3s2_input_grad_plain(cot, weight)
     return _conv_transpose3x3s2_kernel(cot, weight)
@@ -331,24 +365,24 @@ def conv3x3s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> torch.Tenso
 
 def conv3x3s2_input_grad_plain(cot, weight):
     """The plain PyTorch version of :func:`conv3x3s2_input_grad`."""
+    _check_t3(cot, weight)
     with kernels.exact_f32(cot):
         return F.conv_transpose2d(kernels.widen(cot), kernels.widen(weight), stride=2,
-                                  padding=1, output_padding=1)
+                                  padding=1, output_padding=1).to(cot.dtype)
 
 
 def _conv_transpose3x3s2_kernel(cot, weight):
     kernels.no_graph("conv_transpose3x3s2", cot, weight)
+    if _check_t3(cot, weight) not in _FLOAT_OUT:
+        raise TypeError(f"K3 3x3/s2 form takes float32 or bfloat16, got {cot.dtype}")
     b, cin, h, w = cot.shape
     cout = weight.shape[1]
-    if tuple(weight.shape) != (cin, cout, 3, 3):
-        raise ValueError(f"K3 3x3/s2 form: weight {tuple(weight.shape)} does not fit {tuple(cot.shape)}")
-    if cot.dtype != torch.float32:
-        raise TypeError(f"K3 3x3/s2 form takes float32, got {cot.dtype}")
     w32 = _f32(weight)
-    out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device)
+    out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device, dtype=cot.dtype)
     ptrs, meta = kernels.part_args([cot], [False])
     code = kernels.lib().nct_conv_transpose3x3s2(
-        ptrs, meta, b, h, w, cin, cout, w32.data_ptr(), out.data_ptr(), kernels.stream_of(out),
+        ptrs, meta, kernels.DTYPE_CODE[cot.dtype], b, h, w, cin, cout, w32.data_ptr(),
+        out.data_ptr(), kernels.stream_of(out),
     )
     kernels.check(code, "conv_transpose3x3s2 kernel")
     kernels.LAUNCHES["conv_transpose3x3s2"] += 1
@@ -385,7 +419,9 @@ def conv2d_weight_grad_plain(x, g, ksize, padding, pad_top=None, *, stride=1):
     """The plain PyTorch version of :func:`conv2d_weight_grad` and, with
     ``x`` and ``g`` as lists of parts, of :func:`conv2d_wgrad`: one
     contraction over (B, Ho, Wo) per tap."""
-    x, g = (_cat_wide(t) if isinstance(t, (list, tuple)) else kernels.widen(t) for t in (x, g))
+    xs, gs = ([t] if isinstance(t, torch.Tensor) else list(t) for t in (x, g))
+    _grad_dtype(*xs, *gs)
+    x, g = _cat_wide(xs), _cat_wide(gs)
     pad_top = padding if pad_top is None else pad_top
     pt, pb, pl, pr = _weight_grad_pads(x, g, ksize, padding, pad_top, stride)
     ho, wo = g.shape[2:]
@@ -433,7 +469,7 @@ def conv2d_wgrad(
     """Weight cotangent (M, cin, k, k), f32, of a k x k conv at ``stride``
     and symmetric pad ``padding``: ``x_parts`` are the parts of its input
     (B, c_i, H, W) and ``g_parts`` of its output cotangent (B, m_i, Ho, Wo),
-    each a logical channel concat. With the roles swapped (x the output
+    each a logical channel concat, all f32 or all bf16. With the roles swapped (x the output
     cotangent of :func:`conv_transpose4x4s2`, g its input, k 4, stride 2,
     pad 1) it is that transpose conv's weight cotangent, (cin, cout, 4, 4)."""
     x_parts, g_parts = list(x_parts), list(g_parts)
@@ -455,8 +491,8 @@ def _wgrad_kernel(x_parts, g_parts, ksize, stride, padding):
         raise ValueError(f"K6 takes (k, stride) in (3, 1), (3, 2), (4, 2), pad in [0, k), at most 4 parts "
                          f"a side and the conv's own output size; got k {ksize}, stride {stride}, pad "
                          f"{padding}, x {tuple(x_parts[0].shape)}, g {tuple(g_parts[0].shape)}")
-    if any(p.dtype != torch.float32 for p in x_parts + g_parts):
-        raise TypeError("K6 takes float32 parts")
+    if _grad_dtype(*x_parts, *g_parts) not in _FLOAT_OUT:
+        raise TypeError("K6 takes float32 or bfloat16 parts")
     cin, m = sum(p.shape[1] for p in x_parts), sum(p.shape[1] for p in g_parts)
     lib = kernels.lib()
     part = torch.empty((lib.nct_wgrad_slices(b, ho, wo, m, cin * ksize * ksize), m, cin * ksize * ksize),
@@ -465,7 +501,8 @@ def _wgrad_kernel(x_parts, g_parts, ksize, stride, padding):
     gptrs, gmeta = kernels.part_args(g_parts, [False] * len(g_parts))
     xptrs, xmeta = kernels.part_args(x_parts, [False] * len(x_parts))
     code = lib.nct_wgrad(
-        gptrs, gmeta, len(g_parts), xptrs, xmeta, len(x_parts), b, m, cin, h, w, ho, wo,
+        gptrs, gmeta, len(g_parts), xptrs, xmeta, len(x_parts), kernels.DTYPE_CODE[x_parts[0].dtype],
+        b, m, cin, h, w, ho, wo,
         ksize, stride, padding, part.data_ptr(), out.data_ptr(), kernels.stream_of(out),
     )
     kernels.check(code, "wgrad kernel")

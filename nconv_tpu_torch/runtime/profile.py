@@ -4,10 +4,12 @@
                                               [--train [unguided|guided]]
 
 Builds a ``StreamingEngine`` at KITTI 352x1216 with random weights, warms
-it up, and traces ``N`` requests with ``torch.profiler``; with ``--train``,
-traces ``N`` train steps instead (``Trainer.train_step``, adamw, the JAX
-bench's synthetic batch, f32): step 1 at batch 4 (``unguided``, the
-default) or step 2 at batch 1 with step 1 frozen (``guided``). Prints one JSON object: the
+it up, and traces ``N`` requests with ``torch.profiler`` (mixed schedule
+unless ``--dtype f32``); with ``--train``, traces ``N`` train steps instead
+(``Trainer.train_step``, adamw, the JAX bench's synthetic batch): step 1 at
+batch 4 (``unguided``, the default; f32 only) or step 2 at batch 1 with step
+1 frozen (``guided``; f32 unless ``--dtype bf16``, the mixed schedule with
+f32 master weights). Prints one JSON object: the
 card, wall ms per request (or step), device-busy ms per request and the
 busy share of the window, and device ms per request for each kernel name
 (the port's kernels and every PyTorch op between them), largest first.
@@ -37,9 +39,11 @@ def _request(dtype, h, w):
     return lambda: eng(rgb, d, rgb, d)
 
 
-def _train_step(kind, h, w):
+def _train_step(kind, dtype, h, w):
     if kind == "guided":
-        b, task = 1, GuidedTask(GuidedDepthNet(device="cuda"))
+        b, task = 1, GuidedTask(GuidedDepthNet(device="cuda", dtype=dtype))
+    elif dtype != torch.float32:
+        raise SystemExit("profile: step-1 training has no bf16 mode")
     else:
         b, task = 4, UnguidedTask(NConvUNet(device="cuda"))
     trainer = Trainer(task, TrainConfig(batch_size=b, optimizer=OptimizerConfig("adamw", 1e-3, 1e-7)))
@@ -49,16 +53,18 @@ def _train_step(kind, h, w):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--dtype", choices=("bf16", "f32"),
+                    help="compute dtype: bf16 for requests, f32 for train steps by default")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--train", nargs="?", const="unguided", choices=("unguided", "guided"),
-                    help="trace train steps (f32) of step 1 (default) or of step 2")
+                    help="trace train steps of step 1 (default) or of step 2")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     h, w = 352, 1216
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    run = _train_step(args.train, h, w) if args.train else _request(dtype, h, w)
+    name = args.dtype or ("f32" if args.train else "bf16")
+    dtype = torch.bfloat16 if name == "bf16" else torch.float32
+    run = _train_step(args.train, dtype, h, w) if args.train else _request(dtype, h, w)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -83,7 +89,7 @@ def main(argv=None) -> dict:
     ).stdout.strip()
     out = {
         "card": card, "what": f"{args.train}_train_step" if args.train else "request",
-        "dtype": "f32" if args.train else args.dtype, "hw": [h, w], "frames": args.frames,
+        "dtype": name, "hw": [h, w], "frames": args.frames,
         "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms if per_name else "not measured",
         "device_busy_share": busy_ms / wall_ms if per_name else "not measured",

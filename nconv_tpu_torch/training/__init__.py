@@ -2,6 +2,7 @@
 on one device."""
 from .checkpoint import CheckpointManager
 from .config import OptimizerConfig, SchedulerConfig, TrainConfig
+from .evaluate import evaluate, make_guided_predict, make_unguided_predict
 from .optim import (
     ConstantScheduler,
     LinearScheduler,
@@ -18,5 +19,6 @@ __all__ = [
     "CheckpointManager", "ConstantScheduler", "FitResult", "GuidedTask", "LinearScheduler",
     "OptimizerConfig", "PlateauScheduler", "RMSprop", "SchedulerConfig",
     "TrainConfig", "Trainer", "UnguidedTask", "build_optimizer",
-    "build_scheduler", "get_learning_rate", "set_learning_rate",
+    "build_scheduler", "evaluate", "get_learning_rate", "make_guided_predict",
+    "make_unguided_predict", "set_learning_rate",
 ]

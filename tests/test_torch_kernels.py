@@ -215,3 +215,35 @@ def test_guided_functions_backward_on_the_kernels(card):
     assert (counts["conv"], counts["conv_transpose"]) == (2, 1)
     assert (counts["conv_kxk"], counts["conv_transpose3x3s2"], counts["conv4x4s2"], counts["wgrad"]) == (1, 1, 1, 3)
     assert all(t.grad is not None for t in (x, w1, b, ws2, wt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(20, 36), (37, 150)])
+def test_bf16_gradient_forms_equal_the_f32_forms_on_widened_inputs(card, h, w):
+    """The mixed schedule's backward forms sum in f32 as the f32 forms do:
+    K2's K x K forms (3x3 stride 1, 4x4/s2) and K3's 3x3/s2 form in bf16
+    equal the f32 form on the widened inputs, rounded to bf16 once; K6 on
+    bf16 parts equals K6 on the widened parts bit for bit (a product of two
+    bf16 values is exact in f32, and the slice order is the same)."""
+    g = torch.Generator(device=card).manual_seed(7)
+    r = lambda *s: torch.randn(*s, generator=g, device=card).bfloat16()
+    wide = lambda ts: [t.float() for t in ts]
+    kernels.reset_launch_counts()
+    w3 = r(24, 20, 3, 3)
+    for fn, cot, wt in ((lambda c, k: ops.conv2d_input_grad(c, k, 1), r(2, 24, h, w), w3),
+                        (ops.conv3x3s2_input_grad, r(2, 24, h // 2 + 1, w // 2 + 1), w3),
+                        (ops.conv_transpose4x4s2_input_grad, r(2, 16, 2 * h, 2 * w), r(9, 16, 4, 4))):
+        got = fn(cot, wt)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, fn(cot.float(), wt.float()).bfloat16())
+    x = [r(2, 5, h, w), r(2, 70, h, w)[:, 3:]]  # a channel-offset view as the second part
+    for stride, m in ((1, 40), (2, 128), (1, 1)):
+        gp = [r(2, m, (h - 1) // stride + 1, (w - 1) // stride + 1)]
+        dw = ops.conv2d_wgrad(x, gp, 3, stride=stride, padding=1)
+        assert dw.dtype == torch.float32
+        assert torch.equal(dw, ops.conv2d_wgrad(wide(x), wide(gp), 3, stride=stride, padding=1))
+    up, small = r(2, 16, 2 * h, 2 * w), [r(2, 1, h, w), r(2, 8, h, w)]
+    assert torch.equal(ops.conv2d_wgrad([up], small, 4, stride=2, padding=1),
+                       ops.conv2d_wgrad(wide([up]), wide(small), 4, stride=2, padding=1))
+    counts = kernels.launch_counts()
+    assert (counts["conv_kxk"], counts["conv_transpose3x3s2"], counts["conv4x4s2"], counts["wgrad"]) == (2, 2, 2, 8)
