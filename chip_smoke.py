@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch/CUDA versions,
      and the build of the kernels from ``nconv_tpu_torch/csrc``;
   2. every kernel against its plain PyTorch version on the card, at every
-     distinct shape the main path launches (KITTI 352x1216, two streams),
+     distinct shape the main path launches (KITTI 352x1216, two streams;
+     in the mixed schedule the bf16 convs and transpose convs run on the
+     tensor-core forms ``conv_tc`` / ``conv_transpose_tc``),
      random inputs from seeded generators, with kernel / plain / library
      times from CUDA events (median of 20);
   3. the main path: ``StreamingEngine`` with random-init weights carried
@@ -49,9 +51,11 @@ Phases (any failure raises and the script exits non-zero):
      statistics also against phase 5's plain float64 path; (c) five steps
      of ``Trainer.fit``: loss finite and falling, within 2% of phase 5's f32
      fit, step 1 bitwise unchanged, every parameter f32; (d) launch counts
-     per step, as phase 5's; (e) train-step p50 / p90 beside phase 5's; (f)
-     ``evaluate(make_guided_predict(model), [batch])`` on the fitted bf16
-     and f32 models.
+     per step (the forward convs on the tensor-core forms); (e) train-step
+     p50 / p90 beside phase 5's; (f) ``evaluate(make_guided_predict(model),
+     [batch])`` on the fitted bf16 and f32 models; (g) the residual conv's
+     autograd Function at the RGB encoders' shapes, f32 and bf16, kernel
+     path against plain path.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``; every checked call's numbers go
@@ -81,7 +85,13 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 # rate. A u8 frame counts as its weights' type, which the output shares: a u8
 # pixel is exact in bf16, and the mixed schedule holds bf16-valued weights.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
-PER_FRAME = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
+# per two-stream frame, by schedule: in the mixed one the bf16 convs with 8 or
+# more output channels and the transpose convs run on the tensor cores; the
+# u8 frame's encoder and the 4 depth heads stay on K2's CUDA-core form
+PER_FRAME = {
+    "f32": {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4},
+    "mixed": {"nconv": 9, "conv_tc": 18, "conv": 5, "conv_transpose_tc": 3, "conv_chain": 4},
+}
 # step 1 trains all 9 nconvs; nconv1's input (the sparse depth) needs no
 # gradient, so 8 input-gradient convs
 PER_TRAIN_STEP = {"nconv": 9, "conv_kxk": 8, "filtergrad": 9}
@@ -93,9 +103,19 @@ TRAIN_B, TRAIN_FIT_STEPS, TRAIN_TIMED_STEPS = 4, 5, 20
 # transpose-conv input gradients, and 28 + 3 + 3 weight gradients (K6, one
 # launch over all parts of a concat). An evaluation (no grad, eval-mode BN)
 # runs the unfolded serving forward.
-PER_GUIDED_STEP = {"nconv": 9, "conv": 31, "conv_transpose": 3, "conv_kxk": 23,
-                   "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34}
-PER_GUIDED_EVAL = {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4}
+# In the mixed schedule (recorded from a bf16 train step and evaluation):
+# the 27 forward convs with 8 or more output channels and the 3 transpose
+# convs on the tensor cores, the 4 depth heads on K2's CUDA-core form.
+PER_GUIDED_STEP = {
+    "f32": {"nconv": 9, "conv": 31, "conv_transpose": 3, "conv_kxk": 23,
+            "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34},
+    "bf16": {"nconv": 9, "conv_tc": 27, "conv": 4, "conv_transpose_tc": 3, "conv_kxk": 23,
+             "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34},
+}
+PER_GUIDED_EVAL = {
+    "f32": {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4},
+    "bf16": {"nconv": 9, "conv_tc": 19, "conv": 4, "conv_transpose_tc": 3, "conv_chain": 4},
+}
 GUIDED_B = 1
 STATS_BAR = 1e-5  # BN running statistics after a step, kernel path vs plain path
 LOSS_BAR, GRAD_BAR = 1e-6, 1e-4  # train step, kernel path vs plain path
@@ -109,7 +129,9 @@ GRAD_NOISE = 4.0
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "nconv": ("nconv_tpu_torch/csrc/nconv.cu", "nconv_tpu/ops/pallas_nconv_mxu.py:52"),
     "conv": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "conv_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_transpose": ("nconv_tpu_torch/csrc/convt.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "conv_transpose_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_chain": ("nconv_tpu_torch/csrc/chain.cu", "nconv_tpu/ops/pallas_chain.py:169"),
     "conv_kxk": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "filtergrad": ("nconv_tpu_torch/csrc/filtergrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
@@ -172,8 +194,9 @@ class Recorder:
         from nconv_tpu_torch.ops import convops, nconv
 
         real = {
-            "nc": nconv._nconv2d_kernel, "cv": convops._conv3x3_kernel,
-            "ct": convops._conv_transpose_kernel, "ch": convops._chain_kernel,
+            "nc": nconv._nconv2d_kernel, "cv": convops._conv3x3_kernel, "tc": convops._conv_tc_kernel,
+            "ct": convops._conv_transpose_kernel, "tt": convops._conv_transpose_tc_kernel,
+            "ch": convops._chain_kernel,
             "kx": convops._conv_kxk_kernel, "fg": convops._filtergrad_kernel,
             "t3": convops._conv_transpose3x3s2_kernel, "wg": convops._wgrad_kernel,
         }
@@ -187,9 +210,17 @@ class Recorder:
                        _sig(sc), str(out_dtype).replace("torch.", "")))
             return real["cv"](parts, w, b, stride, relu, sc, out_dtype)
 
+        def tc(parts, w, b, stride, relu, sc):
+            self.note(("conv_tc", tuple(map(_sig, parts)), _sig(w), _sig(b), stride, relu, _sig(sc)))
+            return real["tc"](parts, w, b, stride, relu, sc)
+
         def ct(parts, w, b, relu):
             self.note(("conv_transpose", tuple(map(_sig, parts)), _sig(w), b is not None, relu))
             return real["ct"](parts, w, b, relu)
+
+        def tt(parts, w, b, relu):
+            self.note(("conv_transpose_tc", tuple(map(_sig, parts)), _sig(w), _sig(b), relu))
+            return real["tt"](parts, w, b, relu)
 
         def ch(x, w1, b1, w2, b2):
             self.note(("conv_chain", _sig(x), _sig(w1), _sig(w2)))
@@ -213,7 +244,9 @@ class Recorder:
 
         with mock.patch.object(nconv, "_nconv2d_kernel", nc), \
                 mock.patch.object(convops, "_conv3x3_kernel", cv), \
+                mock.patch.object(convops, "_conv_tc_kernel", tc), \
                 mock.patch.object(convops, "_conv_transpose_kernel", ct), \
+                mock.patch.object(convops, "_conv_transpose_tc_kernel", tt), \
                 mock.patch.object(convops, "_chain_kernel", ch), \
                 mock.patch.object(convops, "_conv_kxk_kernel", kx), \
                 mock.patch.object(convops, "_filtergrad_kernel", fg), \
@@ -247,6 +280,15 @@ def _held_at(dtype, *ts):
     import torch
 
     return [None if t is None else t.to(getattr(torch, dtype)).float() for t in ts]
+
+
+def _as_recorded(*ts):
+    """Weights as a tensor-core call was given them: a bf16 tensor as it is
+    (the unfolded bf16 model's per-call cast), an f32 one held at bf16
+    values (the folded serving model)."""
+    import torch
+
+    return [t if t is None or t.dtype == torch.bfloat16 else t.to(torch.bfloat16).float() for t in ts]
 
 
 def check_call(key, g):
@@ -289,6 +331,37 @@ def check_call(key, g):
         macs_per_out = wsig[0][1] * 9 + (wsig[0][1] if sc is not None else 0)
         inputs = parts + [w, b, sc]
         in_dt = out_dt if psigs[0][1] == "uint8" else psigs[0][1]
+    elif kind == "conv_tc":
+        _, psigs, wsig, bsig, stride, relu, scsig = key
+        parts = [_rand(s, g) for s in psigs]
+        fan = wsig[0][1] * 9
+        w = _rand(wsig, g, scale=fan ** -0.5)
+        b = _rand(bsig, g) if bsig else None
+        sc = _rand(scsig, g, scale=wsig[0][1] ** -0.5) if scsig else None
+        w, b, sc = _as_recorded(w, b, sc)
+        kern = lambda: convops._conv_tc_kernel(parts, w, b, stride, relu, sc)
+        plain = lambda: convops.conv3x3_plain(parts, w, b, stride=stride, relu=relu, shortcut=sc,
+                                              out_dtype=torch.bfloat16)
+        xl = torch.cat(parts, 1).contiguous()
+        wl, bl = w.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
+        library = lambda: F.conv2d(xl, wl, bl, stride=stride, padding=1)
+        macs_per_out = wsig[0][1] * 9 + (wsig[0][1] if sc is not None else 0)
+        inputs = parts + [w, b, sc]
+        out_dt = in_dt = "bfloat16"
+    elif kind == "conv_transpose_tc":
+        _, psigs, wsig, bsig, relu = key
+        parts = [_rand(s, g) for s in psigs]
+        w = _rand(wsig, g, scale=(16 * wsig[0][0]) ** -0.5)
+        b = _rand(bsig, g) if bsig else None
+        w, b = _as_recorded(w, b)
+        kern = lambda: convops._conv_transpose_tc_kernel(parts, w, b, relu)
+        plain = lambda: convops.conv_transpose4x4s2_plain(parts, w, b, relu=relu)
+        xl = torch.cat(parts, 1).contiguous()
+        wl, bl = w.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
+        library = lambda: F.conv_transpose2d(xl, wl, bl, stride=2, padding=1)
+        macs_per_out = wsig[0][0] * 4
+        inputs = parts + [w, b]
+        out_dt = in_dt = "bfloat16"
     elif kind == "conv_transpose":
         _, psigs, wsig, has_b, relu = key
         parts = [_rand(s, g) for s in psigs]
@@ -576,7 +649,7 @@ def timed_steps(trainer, batch, per_step, label):
                 ts.append(s_.elapsed_time(e_))
             counts = kernels.launch_counts()
         times[path] = dict(p50_ms=float(np.percentile(ts, 50)), p90_ms=float(np.percentile(ts, 90)))
-        if path == "kernel" and any(counts[k] != v * TRAIN_TIMED_STEPS for k, v in per_step.items()):
+        if path == "kernel" and any(counts[k] != per_step.get(k, 0) * TRAIN_TIMED_STEPS for k in counts):
             raise SystemExit(f"chip_smoke: {label}: {TRAIN_TIMED_STEPS} train steps launched {counts}, "
                              f"expected {per_step} each")
     log(f"[ok] {label} train step: p50 {times['kernel']['p50_ms']:.3f} ms "
@@ -683,6 +756,7 @@ def guided_phase(g, dtype, f32=None):
 
     bf16 = dtype == torch.bfloat16
     label = "guided bf16" if bf16 else "guided"
+    per_step, per_eval = PER_GUIDED_STEP["bf16" if bf16 else "f32"], PER_GUIDED_EVAL["bf16" if bf16 else "f32"]
     batch_np = bench_batch(GUIDED_B, H, W)
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
     cfg = TrainConfig(epochs=TRAIN_FIT_STEPS, batch_size=GUIDED_B, log_every=0,
@@ -695,7 +769,7 @@ def guided_phase(g, dtype, f32=None):
     with r.recording():
         guided_step(batch, dtype, cfg, state, step1_state, plain=False)
     results = check_all(r.calls, g, label)
-    sums = step_sums(r.calls, results, PER_GUIDED_STEP)
+    sums = step_sums(r.calls, results, per_step)
 
     # (b) one train step: kernel path and plain path in ``dtype``, and the
     # plain path in f64 (phase 5's, which does not depend on ``dtype``)
@@ -728,7 +802,7 @@ def guided_phase(g, dtype, f32=None):
     torch.cuda.synchronize()
     fit_counts = kernels.launch_counts()
     losses = fit.history["train_loss"]
-    want = {k: (PER_GUIDED_STEP.get(k, 0) + PER_GUIDED_EVAL.get(k, 0)) * TRAIN_FIT_STEPS for k in kernels.LAUNCHES}
+    want = {k: (per_step.get(k, 0) + per_eval.get(k, 0)) * TRAIN_FIT_STEPS for k in kernels.LAUNCHES}
     falling = bool(np.all(np.isfinite(losses + fit.history["val_loss"])) and losses[-1] < losses[0])
     frozen = all(torch.equal(v, model.step1.state_dict()[k]) for k, v in step1_state.items())
     masters = all(p.dtype == torch.float32 for p in model.parameters())
@@ -758,17 +832,64 @@ def guided_phase(g, dtype, f32=None):
 
     # (d) launches per train step and (e) its time, kernel path then plain path
     name = "bf16" if bf16 else "f32"
-    times = timed_steps(trainer, batch, PER_GUIDED_STEP, f"{label} (B={GUIDED_B}, {H}x{W}, {name}, adamw)")
+    times = timed_steps(trainer, batch, per_step, f"{label} (B={GUIDED_B}, {H}x{W}, {name}, adamw)")
     if f32 is not None:
         log(f"    {label} step p50 / p90 {times['kernel']['p50_ms']:.3f} / {times['kernel']['p90_ms']:.3f} ms "
             f"beside the f32 step's {f32['step_ms']['kernel']['p50_ms']:.3f} / "
             f"{f32['step_ms']['kernel']['p90_ms']:.3f} ms (this run)")
-    per_step = {k: c for k, c in r.calls.items() if k[0] in (BF16_KERNELS if bf16 else GUIDED_KERNELS)}
+    step_calls = {k: c for k, c in r.calls.items() if k[0] in (BF16_KERNELS if bf16 else GUIDED_KERNELS)}
     summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=checks, stats=stats_err,
                    stats_vs_f64=stats_vs_64, fit_losses=losses, fit_val_losses=fit.history["val_loss"],
                    fit_counts=fit_counts, step_ms=times, kernel_sums_per_step=sums, metrics=metrics)
     carry = dict(ref64=ref64, losses=losses, step_ms=times, metrics=metrics)
-    return results, per_step, fit_counts, summary, carry
+    return results, step_calls, fit_counts, summary, carry
+
+
+# ---------------------------------------------------------------------------
+# The residual conv's backward
+# ---------------------------------------------------------------------------
+
+RESIDUAL_CASES = ((32, 64, 2, H, W), (3, 32, 1, H, W))  # (cin, cout, stride, h, w): RGB encoders 1 and 0
+
+
+def residual_check(g):
+    """The residual form's autograd Function (``conv3x3_residual_trainable``)
+    at the RGB encoders' shapes, batch 1, in f32 and bf16: output and
+    gradients on the kernel path against the plain path (f32 within
+    GRAD_BAR; bf16 within BF16_BAR, the output rounding, a recovered ReLU mask
+    that flips included). Returns the errors; raises on a miss."""
+    import torch
+
+    from nconv_tpu_torch import kernels
+    from nconv_tpu_torch.ops import conv3x3_residual_trainable
+
+    names, found = ("out", "d_x", "d_w", "d_b", "d_shortcut"), {}
+    for cin, cout, stride, h, w in RESIDUAL_CASES:
+        for dtype, bar in ((torch.float32, GRAD_BAR), (torch.bfloat16, BF16_BAR)):
+            r = lambda *s, scale=1.0: (torch.randn(*s, generator=g, device="cuda") * scale).to(dtype)
+            x = r(GUIDED_B, cin, h, w)
+            wt, b, sc = r(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), r(cout), r(cout, cin, 1, 1, scale=cin ** -0.5)
+            cot = r(GUIDED_B, cout, (h - 1) // stride + 1, (w - 1) // stride + 1)
+            got = {}
+            for path in ("kernel", "plain"):
+                leaves = [t.clone().requires_grad_() for t in (x, wt, b, sc)]
+                kernels.reset_launch_counts()
+                with plain_versions() if path == "plain" else contextlib.nullcontext():
+                    y = conv3x3_residual_trainable([leaves[0]], *leaves[1:3], leaves[3], stride=stride)
+                    y.backward(cot)
+                torch.cuda.synchronize()
+                got[path] = [y.detach()] + [t.grad for t in leaves]
+                if path == "kernel":
+                    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            errs = {n: rel_rmse(a.float(), e.float()) for n, a, e in zip(names, got["kernel"], got["plain"])}
+            tag = f"{cin}->{cout} s{stride} {str(dtype).replace('torch.', '')}"
+            found[tag] = dict(errs=errs, bar=bar, launches=counts)
+            ok = max(errs.values()) <= bar
+            log(f"[{'ok' if ok else 'FAIL'}] residual backward {tag} {h}x{w} kernel vs plain: "
+                + ", ".join(f"{n} {v:.2e}" for n, v in errs.items()) + f" (bar {bar:.0e}); launches {counts}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: residual backward {tag}: {errs}")
+    return found
 
 
 def main() -> int:
@@ -838,7 +959,7 @@ def main() -> int:
     with torch.no_grad():
         with plain_versions():
             ref = {n: [readings(e, f, e(*f)) for f in frames[:2]] for n, e in engines.items()}
-        summary = {}
+        summary, engine_counts = {}, {}
         for name in ("f32", "mixed"):
             eng = engines[name]
             eng.warmup()
@@ -846,9 +967,9 @@ def main() -> int:
             outs = [eng(*f) for f in frames]
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
-            if name == "mixed":
-                main_counts = counts
-            for k, per in PER_FRAME.items():
+            engine_counts[name] = counts
+            for k in counts:
+                per = PER_FRAME[name].get(k, 0)
                 if counts[k] != per * N_REQUESTS:
                     raise SystemExit(f"chip_smoke: {name}: {k} launched {counts[k]} times, "
                                      f"expected {per} x {N_REQUESTS}")
@@ -883,8 +1004,9 @@ def main() -> int:
     # -- 5. guided (step-2) training, f32
     guided_results, guided_calls, guided_counts, guided_summary, carry = guided_phase(g, torch.float32)
 
-    # -- 6. guided training in the mixed schedule
+    # -- 6. guided training in the mixed schedule, and the residual conv's backward
     bf16_results, bf16_calls, bf16_counts, bf16_summary, _ = guided_phase(g, torch.bfloat16, carry)
+    bf16_summary["residual_backward"] = residual_check(g)
 
     # -- report: one entry per kernel form; sums per two-stream frame over
     # the mixed main path for the serving kernels, per step-1 train step for
@@ -909,8 +1031,9 @@ def main() -> int:
             per, res, launches = train_calls, train_results, train_counts[kname]
         elif kname in GUIDED_KERNELS:
             per, res, launches = guided_calls, guided_results, guided_counts[kname]
-        else:
-            per, res, launches = rec["mixed"], results, main_counts[kname]
+        else:  # a serving form: from the mixed frame, or the f32 one if the mixed runs none
+            sched = "mixed" if PER_FRAME["mixed"].get(kname) else "f32"
+            per, res, launches = rec[sched], results, engine_counts[sched][kname]
         calls = [(k, r) for k, r in res.items() if k in per and k[0] == kname]
         tot = lambda f: sum(r[f] * per[k] for k, r in calls)
         libs = [r["library_ms"] for _, r in calls]

@@ -1,4 +1,5 @@
-// K3: 4x4 stride-2 pad-1 transpose convolution + bias + optional ReLU,
+// K3: 4x4 stride-2 pad-1 transpose convolution + bias + optional ReLU in
+// f32 (the bf16 form runs on the tensor cores, conv_tc.cu),
 // torch.nn.ConvTranspose2d semantics, weight (cin, cout, 4, 4):
 //
 //   out[co, oy, ox] = sum over ci and taps with oy = 2*iy - 1 + ky,
@@ -224,7 +225,8 @@ __global__ void __launch_bounds__(Q_THREADS) convt3x3s2_kernel(const ConvT3Args 
 
 }  // namespace nct
 
-// Plain C entry; input and output share one storage type (F32 or BF16).
+// Plain C entry; input and output f32 (the bf16 form runs on the tensor
+// cores, conv_tc.cu).
 extern "C" int nct_conv_transpose4x4s2(const void* const* part_ptrs,
                                        const long long* part_meta, int nparts,
                                        int dtype, int B, int H, int W, int cin,
@@ -241,8 +243,7 @@ extern "C" int nct_conv_transpose4x4s2(const void* const* part_ptrs,
   a.w = w, a.bias = bias, a.out = out;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == F32) return dispatch_cot<float>(a, st);
-  if (dtype == BF16) return dispatch_cot<__nv_bfloat16>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaErrorInvalidValue);  // bf16: conv_tc.cu
 }
 
 // Plain C entry of the 3x3/s2 form: one input part (B, cin, h, w) (see

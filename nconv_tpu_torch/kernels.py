@@ -34,7 +34,8 @@ NVCC_FLAGS = [
 
 # launches per kernel, counted by the wrappers in ops/
 LAUNCHES: dict[str, int] = {
-    "nconv": 0, "conv": 0, "conv_transpose": 0, "conv_chain": 0,
+    "nconv": 0, "conv": 0, "conv_tc": 0, "conv_transpose": 0, "conv_transpose_tc": 0,
+    "conv_chain": 0,
     "conv_kxk": 0, "filtergrad": 0,
     "conv4x4s2": 0, "conv_transpose3x3s2": 0, "wgrad": 0,
 }
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "nct_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, P],
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
     "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
+    "nct_conv_tc": [P, P, I, I, I, I, I, I, I, P, I, P, P, I, P, I, P],
     "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
@@ -195,8 +197,9 @@ def widen(t: torch.Tensor) -> torch.Tensor:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a pointer value (read
+    without building a ``torch.cuda.Stream``, a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(code: int, what: str) -> None:

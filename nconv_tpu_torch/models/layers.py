@@ -13,8 +13,8 @@ Blocks built with ``fold_bn=True`` hold BatchNorm already folded into the
 conv (see :mod:`.fold`) and run as one fused kernel each; unfolded blocks
 run conv, :class:`_ChannelBN` and ReLU in turn.
 
-Every conv but the folded residual form runs through its autograd
-Function (:mod:`..ops.conv_autograd`), whose forward is the fused op.
+Every conv runs through its autograd Function (:mod:`..ops.conv_autograd`),
+whose forward is the fused op.
 :class:`_ChannelBN` follows ``self.training``: batch statistics and
 running-average updates in train mode, the running statistics in eval
 mode.
@@ -27,8 +27,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv_autograd import conv3x3_trainable, conv_transpose4x4s2_trainable
-from ..ops.convops import conv3x3, conv3x3_chain2
+from ..ops.conv_autograd import (
+    conv3x3_residual_trainable,
+    conv3x3_trainable,
+    conv_transpose4x4s2_trainable,
+)
+from ..ops.convops import conv3x3_chain2
 
 # the running statistics' decay, the JAX package's ``_ChannelBN.momentum``
 _BN_MOMENTUM = 0.9
@@ -81,12 +85,13 @@ class Conv(_ConvParams):
 
 
 def _conv3x3(parts, weight, bias, *, dtype, stride=1, relu=False, shortcut=None):
-    """The fused conv op through its autograd Function, except the residual
-    ``shortcut`` form, which has no backward: it serves folded models only."""
+    """The fused conv op through its autograd Function (the residual form,
+    ``relu`` implied, through its own)."""
     if shortcut is None:
         return conv3x3_trainable(parts, weight, bias, stride=stride, relu=relu, out_dtype=dtype)
-    return conv3x3(parts, weight, bias, stride=stride, relu=relu, shortcut=shortcut,
-                   out_dtype=dtype)
+    if not relu:
+        raise ValueError("the residual form is relu(conv + b) + shortcut")
+    return conv3x3_residual_trainable(parts, weight, bias, shortcut, stride=stride, out_dtype=dtype)
 
 
 class ConvTranspose(_ConvParams):

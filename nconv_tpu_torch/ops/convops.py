@@ -5,12 +5,17 @@ Plain ops: :func:`conv2d` (OIHW) and :func:`conv_transpose2d`
 
 Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
 (same signature) on CPU tensors:
-  * :func:`conv3x3` — K2 (``csrc/conv.cu``): 3x3 pad-1 conv, stride 1 or 2,
-    bias, ReLU, optional residual epilogue ``relu(conv3x3 + b) + conv1x1``,
-    input as a list of parts of one storage type (f32, bf16 or uint8
-    decoded as raw 0..255 values);
-  * :func:`conv_transpose4x4s2` — K3 (``csrc/convt.cu``): 4x4/s2/p1
-    transpose conv + bias + ReLU over parts;
+  * :func:`conv3x3` — K2: 3x3 pad-1 conv, stride 1 or 2, bias, ReLU,
+    optional residual epilogue ``relu(conv3x3 + b) + conv1x1``, input as a
+    list of parts of one storage type (f32, bf16 or uint8 decoded as raw
+    0..255 values). bf16 parts with a bf16 output and cout >= 8 run on the
+    tensor cores (``csrc/conv_tc.cu``, counter ``conv_tc``); every other
+    call (f32, the uint8 frame, the 1-channel heads) on the CUDA cores
+    (``csrc/conv.cu``, counter ``conv``);
+  * :func:`conv_transpose4x4s2` — K3: 4x4/s2/p1 transpose conv + bias +
+    ReLU over parts; bf16 on the tensor cores (``csrc/conv_tc.cu``,
+    ``conv_transpose_tc``), f32 on the CUDA cores (``csrc/convt.cu``,
+    ``conv_transpose``);
   * :func:`conv3x3_chain2` — K4 (``csrc/chain.cu``): two 3x3 conv + bias +
     ReLU stages with the intermediate kept on chip.
 
@@ -31,9 +36,12 @@ schedule except K5):
     convs (3x3 at stride 1 or 2, and the 4x4/s2 transpose conv) on K6
     (``csrc/wgrad.cu``), its inputs given as parts.
 
-All arithmetic is f32: weights and bias are taken at the values they hold
-(the caller rounds them to the compute dtype), inputs are widened on load,
-and the output is rounded once to its storage type. An input gradient comes
+All arithmetic is f32: inputs are widened on load and the output is
+rounded once to its storage type. Bias is taken at the value it holds;
+weights too, except that the forward convs on bf16 parts round them to bf16
+(nearest even) first, as JAX's mixed schedule casts its kernel to the
+compute dtype; the tensor-core forms do so as they stage the weight from its
+stored type (f32 or bf16). An input gradient comes
 out in its cotangent's storage type; a weight gradient in f32 (the caller
 rounds it to the weight's dtype). A gradient call's tensors share one dtype,
 or it raises. The plain versions keep float64 inputs in float64, as a
@@ -75,6 +83,30 @@ def _wide(t):
 
 def _f32(t):
     return None if t is None else t.detach().float().contiguous()
+
+
+def _stored(t):
+    return None if t is None else t.detach().contiguous()
+
+
+def _round_for(parts, t):
+    """Weight ``t`` as a forward conv over ``parts`` reads it: rounded to
+    bf16 for bf16 parts, else as held."""
+    if t is None or parts[0].dtype != torch.bfloat16:
+        return t
+    return t.to(torch.bfloat16)
+
+
+def _weight_code(t, what):
+    if t.dtype not in _FLOAT_OUT:
+        raise TypeError(f"{what}: the tensor-core form reads f32 or bf16 weights, got {t.dtype}")
+    return kernels.DTYPE_CODE[t.dtype]
+
+
+def on_tensor_cores(parts_dtype: torch.dtype, out_dtype: torch.dtype, cout: int) -> bool:
+    """Whether :func:`conv3x3` runs a call on the tensor-core form of K2
+    (bf16 parts, bf16 output, at least 8 output channels)."""
+    return parts_dtype == torch.bfloat16 and out_dtype == torch.bfloat16 and cout >= 8
 
 
 def _grad_dtype(*ts):
@@ -124,6 +156,8 @@ def conv3x3(
     if not kernels.on_card(*parts, weight, bias, shortcut):
         return conv3x3_plain(parts, weight, bias, stride=stride, relu=relu,
                              shortcut=shortcut, out_dtype=out_dtype)
+    if on_tensor_cores(parts[0].dtype, out_dtype, weight.shape[0]):
+        return _conv_tc_kernel(parts, weight, bias, stride, relu, shortcut)
     return _conv3x3_kernel(parts, weight, bias, stride, relu, shortcut, out_dtype)
 
 
@@ -134,11 +168,11 @@ def conv3x3_plain(parts, weight, bias=None, *, stride=1, relu=False,
     if out_dtype is None:
         out_dtype = torch.float32 if parts[0].dtype == torch.uint8 else parts[0].dtype
     x = _cat_wide(parts)
-    y = conv2d(x, _wide(weight), _wide(bias), stride=stride, padding=1)
+    y = conv2d(x, _wide(_round_for(parts, weight)), _wide(bias), stride=stride, padding=1)
     if relu:
         y = torch.relu(y)
     if shortcut is not None:
-        y = y + conv2d(x, _wide(shortcut), stride=stride)
+        y = y + conv2d(x, _wide(_round_for(parts, shortcut)), stride=stride)
     return y.to(out_dtype)
 
 
@@ -154,10 +188,14 @@ def _conv3x3_kernel(parts, weight, bias, stride, relu, shortcut, out_dtype):
         raise TypeError(f"K2 does not take {parts[0].dtype} -> {out_dtype}")
     if parts[0].dtype == torch.float32 and out_dtype != torch.float32:
         raise TypeError("K2 keeps float32 inputs in float32")
+    if on_tensor_cores(parts[0].dtype, out_dtype, cout):
+        raise ValueError("bf16 -> bf16 convs with cout >= 8 run on the tensor-core form (conv_tc)")
     if shortcut is not None and tuple(shortcut.shape) != (cout, cin, 1, 1):
         raise ValueError(f"K2 shortcut {tuple(shortcut.shape)} is not ({cout}, {cin}, 1, 1)")
+    if shortcut is not None and parts[0].dtype == out_dtype == torch.bfloat16:
+        raise ValueError("K2's CUDA-core form has no bf16 residual form below 8 channels")
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    w32, b32, s32 = _f32(weight), _f32(bias), _f32(shortcut)
+    w32, b32, s32 = _f32(_round_for(parts, weight)), _f32(bias), _f32(_round_for(parts, shortcut))
     out = torch.empty((b, cout, ho, wo), device=parts[0].device, dtype=out_dtype)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
     code = kernels.lib().nct_conv3x3(
@@ -168,6 +206,32 @@ def _conv3x3_kernel(parts, weight, bias, stride, relu, shortcut, out_dtype):
     )
     kernels.check(code, "conv3x3 kernel")
     kernels.LAUNCHES["conv"] += 1
+    return out
+
+
+def _conv_tc_kernel(parts, weight, bias, stride, relu, shortcut):
+    kernels.no_graph("conv_tc", *parts, weight, bias, shortcut)
+    b, h, w = _check_same_geometry(parts)
+    cout, cin = weight.shape[:2]
+    if tuple(weight.shape[2:]) != (3, 3) or sum(p.shape[1] for p in parts) != cin:
+        raise ValueError(f"K2 weight {tuple(weight.shape)} does not fit the parts")
+    if len(parts) > 4 or stride not in (1, 2) or parts[0].dtype != torch.bfloat16:
+        raise ValueError("K2's tensor-core form takes at most 4 bf16 parts and stride 1 or 2")
+    if shortcut is not None and (tuple(shortcut.shape) != (cout, cin, 1, 1) or shortcut.dtype != weight.dtype):
+        raise ValueError(f"K2 shortcut {tuple(shortcut.shape)} {shortcut.dtype} is not ({cout}, {cin}, 1, 1) "
+                         f"{weight.dtype}")
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    wt, bt, st = _stored(weight), _stored(bias), _stored(shortcut)
+    out = torch.empty((b, cout, ho, wo), device=parts[0].device, dtype=torch.bfloat16)
+    ptrs, meta = kernels.part_args(parts, [False] * len(parts))
+    code = kernels.lib().nct_conv_tc(
+        ptrs, meta, len(parts), b, h, w, cin, cout, stride - 1, wt.data_ptr(),
+        _weight_code(wt, "conv_tc"), kernels.ptr(st), kernels.ptr(bt),
+        0 if bt is None else _weight_code(bt, "conv_tc"), out.data_ptr(), int(relu),
+        kernels.stream_of(out),
+    )
+    kernels.check(code, "conv_tc kernel")
+    kernels.LAUNCHES["conv_tc"] += 1
     return out
 
 
@@ -188,13 +252,15 @@ def conv_transpose4x4s2(
     _check_same_geometry(parts)
     if not kernels.on_card(*parts, weight, bias):
         return conv_transpose4x4s2_plain(parts, weight, bias, relu=relu)
+    if parts[0].dtype == torch.bfloat16:
+        return _conv_transpose_tc_kernel(parts, weight, bias, relu)
     return _conv_transpose_kernel(parts, weight, bias, relu)
 
 
 def conv_transpose4x4s2_plain(parts, weight, bias=None, *, relu=True):
     """The plain PyTorch version of :func:`conv_transpose4x4s2`."""
     parts = list(parts)
-    y = conv_transpose2d(_cat_wide(parts), _wide(weight), _wide(bias))
+    y = conv_transpose2d(_cat_wide(parts), _wide(_round_for(parts, weight)), _wide(bias))
     if relu:
         y = torch.relu(y)
     return y.to(parts[0].dtype)
@@ -206,8 +272,8 @@ def _conv_transpose_kernel(parts, weight, bias, relu):
     cin, cout = weight.shape[:2]
     if tuple(weight.shape[2:]) != (4, 4) or sum(p.shape[1] for p in parts) != cin:
         raise ValueError(f"K3 weight {tuple(weight.shape)} does not fit the parts")
-    if len(parts) > 4 or parts[0].dtype not in _FLOAT_OUT:
-        raise TypeError("K3 takes at most 4 float32 or bfloat16 parts")
+    if len(parts) > 4 or parts[0].dtype != torch.float32:
+        raise TypeError("K3's CUDA-core form takes at most 4 float32 parts (bf16: conv_transpose_tc)")
     w32, b32 = _f32(weight), _f32(bias)
     out = torch.empty((b, cout, 2 * h, 2 * w), device=parts[0].device, dtype=parts[0].dtype)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
@@ -218,6 +284,28 @@ def _conv_transpose_kernel(parts, weight, bias, relu):
     )
     kernels.check(code, "conv_transpose kernel")
     kernels.LAUNCHES["conv_transpose"] += 1
+    return out
+
+
+def _conv_transpose_tc_kernel(parts, weight, bias, relu):
+    kernels.no_graph("conv_transpose_tc", *parts, weight, bias)
+    b, h, w = _check_same_geometry(parts)
+    cin, cout = weight.shape[:2]
+    if tuple(weight.shape[2:]) != (4, 4) or sum(p.shape[1] for p in parts) != cin:
+        raise ValueError(f"K3 weight {tuple(weight.shape)} does not fit the parts")
+    if len(parts) > 4 or parts[0].dtype != torch.bfloat16:
+        raise TypeError("K3's tensor-core form takes at most 4 bf16 parts")
+    wt, bt = _stored(weight), _stored(bias)
+    out = torch.empty((b, cout, 2 * h, 2 * w), device=parts[0].device, dtype=torch.bfloat16)
+    ptrs, meta = kernels.part_args(parts, [False] * len(parts))
+    code = kernels.lib().nct_conv_tc(
+        ptrs, meta, len(parts), b, h, w, cin, cout, 2, wt.data_ptr(),
+        _weight_code(wt, "conv_transpose_tc"), None, kernels.ptr(bt),
+        0 if bt is None else _weight_code(bt, "conv_transpose_tc"), out.data_ptr(), int(relu),
+        kernels.stream_of(out),
+    )
+    kernels.check(code, "conv_transpose_tc kernel")
+    kernels.LAUNCHES["conv_transpose_tc"] += 1
     return out
 
 
