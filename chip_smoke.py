@@ -11,16 +11,21 @@ Phases (any failure raises and the script exits non-zero):
   2. every kernel against its plain PyTorch version on the card, at every
      distinct shape the main path launches (KITTI 352x1216, two streams;
      in the mixed schedule the bf16 convs and transpose convs run on the
-     tensor-core forms ``conv_tc`` / ``conv_transpose_tc``),
-     random inputs from seeded generators, with kernel / plain / library
-     times from CUDA events (median of 20);
+     tensor-core forms ``conv_tc`` / ``conv_transpose_tc``, the u8 frame's
+     encoder and the depth heads on ``conv_thin``, the conv chains on
+     ``conv_chain_tc``), random inputs from seeded generators, with kernel /
+     plain / library times from CUDA events (median of 20); beside each bf16
+     chain, two cuDNN bf16 convs and two ``conv_tc`` launches on the same
+     shapes;
   3. the main path: ``StreamingEngine`` with random-init weights carried
      through BN folding, in f32 and in the mixed schedule, answering
      two-stream requests of synthetic frames; outputs must be finite, zero
      on the sensor border, and match the plain path on the card, both as a
      whole and in their guided residual (output less the step-1 dense
      depth); the mixed output must match the f32 plain path; and every
-     kernel must have been launched the expected number of times;
+     kernel must have been launched the expected number of times. Beside
+     those bars, both paths' distances from a float64 plain run of the same
+     weights, so that a crossing can be told from an error;
   4. step-1 training: ``Trainer(UnguidedTask(NConvUNet()))`` at full width
      on KITTI 352x1216, batch 4, adamw, on the JAX bench's synthetic batch.
      (a) the backward's kernels (K2's K x K form, K5) against their plain
@@ -64,6 +69,7 @@ to ``build/chip_smoke/chip_smoke_calls.json``. Exits non-zero without a GPU.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -86,11 +92,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 # pixel is exact in bf16, and the mixed schedule holds bf16-valued weights.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 # per two-stream frame, by schedule: in the mixed one the bf16 convs with 8 or
-# more output channels and the transpose convs run on the tensor cores; the
-# u8 frame's encoder and the 4 depth heads stay on K2's CUDA-core form
+# more output channels, the transpose convs and the conv chains run on the
+# tensor cores, the u8 frame's encoder and the 4 depth heads on the thin
+# CUDA-core form
 PER_FRAME = {
     "f32": {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4},
-    "mixed": {"nconv": 9, "conv_tc": 18, "conv": 5, "conv_transpose_tc": 3, "conv_chain": 4},
+    "mixed": {"nconv": 9, "conv_tc": 18, "conv_thin": 5, "conv_transpose_tc": 3, "conv_chain_tc": 4},
 }
 # step 1 trains all 9 nconvs; nconv1's input (the sparse depth) needs no
 # gradient, so 8 input-gradient convs
@@ -104,17 +111,18 @@ TRAIN_B, TRAIN_FIT_STEPS, TRAIN_TIMED_STEPS = 4, 5, 20
 # launch over all parts of a concat). An evaluation (no grad, eval-mode BN)
 # runs the unfolded serving forward.
 # In the mixed schedule (recorded from a bf16 train step and evaluation):
-# the 27 forward convs with 8 or more output channels and the 3 transpose
-# convs on the tensor cores, the 4 depth heads on K2's CUDA-core form.
+# the 27 forward convs with 8 or more output channels, the 3 transpose convs
+# and an evaluation's 4 chains on the tensor cores, the 4 depth heads on the
+# thin form.
 PER_GUIDED_STEP = {
     "f32": {"nconv": 9, "conv": 31, "conv_transpose": 3, "conv_kxk": 23,
             "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34},
-    "bf16": {"nconv": 9, "conv_tc": 27, "conv": 4, "conv_transpose_tc": 3, "conv_kxk": 23,
+    "bf16": {"nconv": 9, "conv_tc": 27, "conv_thin": 4, "conv_transpose_tc": 3, "conv_kxk": 23,
              "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34},
 }
 PER_GUIDED_EVAL = {
     "f32": {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4},
-    "bf16": {"nconv": 9, "conv_tc": 19, "conv": 4, "conv_transpose_tc": 3, "conv_chain": 4},
+    "bf16": {"nconv": 9, "conv_tc": 19, "conv_thin": 4, "conv_transpose_tc": 3, "conv_chain_tc": 4},
 }
 GUIDED_B = 1
 STATS_BAR = 1e-5  # BN running statistics after a step, kernel path vs plain path
@@ -130,15 +138,19 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "nconv": ("nconv_tpu_torch/csrc/nconv.cu", "nconv_tpu/ops/pallas_nconv_mxu.py:52"),
     "conv": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "conv_thin": ("nconv_tpu_torch/csrc/conv_thin.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_transpose": ("nconv_tpu_torch/csrc/convt.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_transpose_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_chain": ("nconv_tpu_torch/csrc/chain.cu", "nconv_tpu/ops/pallas_chain.py:169"),
+    "conv_chain_tc": ("nconv_tpu_torch/csrc/conv_chain_tc.cu", "nconv_tpu/ops/pallas_chain.py:169"),
     "conv_kxk": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "filtergrad": ("nconv_tpu_torch/csrc/filtergrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
     "conv_transpose3x3s2": ("nconv_tpu_torch/csrc/convt.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv4x4s2": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "wgrad": ("nconv_tpu_torch/csrc/wgrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
 }
+# timed beside each bf16 chain: two cuDNN bf16 convs, two conv_tc launches
+YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms")
 TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
 GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per guided train step
 # their bf16 forms, per bf16 guided train step, as entries of their own
@@ -195,8 +207,8 @@ class Recorder:
 
         real = {
             "nc": nconv._nconv2d_kernel, "cv": convops._conv3x3_kernel, "tc": convops._conv_tc_kernel,
-            "ct": convops._conv_transpose_kernel, "tt": convops._conv_transpose_tc_kernel,
-            "ch": convops._chain_kernel,
+            "th": convops._conv_thin_kernel, "ct": convops._conv_transpose_kernel,
+            "tt": convops._conv_transpose_tc_kernel, "ch": convops._chain_kernel, "cc": convops._chain_tc_kernel,
             "kx": convops._conv_kxk_kernel, "fg": convops._filtergrad_kernel,
             "t3": convops._conv_transpose3x3s2_kernel, "wg": convops._wgrad_kernel,
         }
@@ -214,6 +226,10 @@ class Recorder:
             self.note(("conv_tc", tuple(map(_sig, parts)), _sig(w), _sig(b), stride, relu, _sig(sc)))
             return real["tc"](parts, w, b, stride, relu, sc)
 
+        def th(parts, w, b, relu, sc):
+            self.note(("conv_thin", tuple(map(_sig, parts)), _sig(w), b is not None, relu, _sig(sc)))
+            return real["th"](parts, w, b, relu, sc)
+
         def ct(parts, w, b, relu):
             self.note(("conv_transpose", tuple(map(_sig, parts)), _sig(w), b is not None, relu))
             return real["ct"](parts, w, b, relu)
@@ -225,6 +241,10 @@ class Recorder:
         def ch(x, w1, b1, w2, b2):
             self.note(("conv_chain", _sig(x), _sig(w1), _sig(w2)))
             return real["ch"](x, w1, b1, w2, b2)
+
+        def cc(x, w1, b1, w2, b2):
+            self.note(("conv_chain_tc", _sig(x), _sig(w1), _sig(b1), _sig(w2), _sig(b2)))
+            return real["cc"](x, w1, b1, w2, b2)
 
         def kx(x, w, padding, stride):
             self.note(("conv_kxk" if stride == 1 else "conv4x4s2", _sig(x), _sig(w), padding, stride))
@@ -245,9 +265,11 @@ class Recorder:
         with mock.patch.object(nconv, "_nconv2d_kernel", nc), \
                 mock.patch.object(convops, "_conv3x3_kernel", cv), \
                 mock.patch.object(convops, "_conv_tc_kernel", tc), \
+                mock.patch.object(convops, "_conv_thin_kernel", th), \
                 mock.patch.object(convops, "_conv_transpose_kernel", ct), \
                 mock.patch.object(convops, "_conv_transpose_tc_kernel", tt), \
                 mock.patch.object(convops, "_chain_kernel", ch), \
+                mock.patch.object(convops, "_chain_tc_kernel", cc), \
                 mock.patch.object(convops, "_conv_kxk_kernel", kx), \
                 mock.patch.object(convops, "_filtergrad_kernel", fg), \
                 mock.patch.object(convops, "_conv_transpose3x3s2_kernel", t3), \
@@ -300,7 +322,7 @@ def check_call(key, g):
     from nconv_tpu_torch.ops import convops, nconv
 
     kind = key[0]
-    library = None
+    library, yardsticks = None, {}
     if kind == "nconv":
         _, dsigs, up2, wsig, padding, crop, pool_out, eps = key
         d = [_rand(s, g, positive=True) * 10 for s in dsigs]
@@ -331,6 +353,21 @@ def check_call(key, g):
         macs_per_out = wsig[0][1] * 9 + (wsig[0][1] if sc is not None else 0)
         inputs = parts + [w, b, sc]
         in_dt = out_dt if psigs[0][1] == "uint8" else psigs[0][1]
+    elif kind == "conv_thin":
+        _, psigs, wsig, has_b, relu, scsig = key
+        parts = [_rand(s, g) for s in psigs]
+        w = _rand(wsig, g, scale=(wsig[0][1] * 9) ** -0.5)
+        b = _rand(((wsig[0][0],), wsig[1], False), g) if has_b else None
+        sc = _rand(scsig, g, scale=wsig[0][1] ** -0.5) if scsig else None
+        w, b, sc = _held_at("bfloat16", w, b, sc)
+        kern = lambda: convops._conv_thin_kernel(parts, w, b, relu, sc)
+        plain = lambda: convops.conv3x3_plain(parts, w, b, relu=relu, shortcut=sc, out_dtype=torch.bfloat16)
+        xl = torch.cat([p.to(torch.bfloat16) for p in parts], 1).contiguous()
+        wl, bl = w.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
+        library = lambda: F.conv2d(xl, wl, bl, padding=1)
+        macs_per_out = wsig[0][1] * 9 + (wsig[0][1] if sc is not None else 0)
+        inputs = parts + [w, b, sc]
+        out_dt = in_dt = "bfloat16"
     elif kind == "conv_tc":
         _, psigs, wsig, bsig, stride, relu, scsig = key
         parts = [_rand(s, g) for s in psigs]
@@ -430,6 +467,27 @@ def check_call(key, g):
         b_, _, ho, wo = gsig[0]
         macs_per_out = b_ * ho * wo  # each weight-cotangent entry sums B*Ho*Wo products
         inputs = [x, gr]
+    elif kind == "conv_chain_tc":
+        _, xsig, w1sig, b1sig, w2sig, b2sig = key
+        out_dt = in_dt = "bfloat16"
+        x = _rand(xsig, g)
+        w1 = _rand(w1sig, g, scale=(9 * w1sig[0][1]) ** -0.5)
+        w2 = _rand(w2sig, g, scale=(9 * w2sig[0][1]) ** -0.5)
+        b1, b2 = _rand(b1sig, g), _rand(b2sig, g)
+        w1, b1, w2, b2 = _as_recorded(w1, b1, w2, b2)
+        kern = lambda: convops._chain_tc_kernel(x, w1, b1, w2, b2)
+        plain = lambda: convops.conv3x3_chain2_plain(x, w1, b1, w2, b2)
+        cin, cmid, cout = w1sig[0][1], w1sig[0][0], w2sig[0][0]
+        macs_per_out = 9 * (cmid * cin + cout * cmid) / cout
+        inputs = [x, w1, b1, w2, b2]
+        # the yardsticks: two cuDNN bf16 convs, and two conv_tc launches
+        lw1, lb1, lw2, lb2 = (t.to(torch.bfloat16) for t in (w1, b1, w2, b2))
+        yardsticks = {
+            "two_cudnn_bf16_ms": lambda: torch.relu(F.conv2d(torch.relu(F.conv2d(x, lw1, lb1, padding=1)), lw2, lb2,
+                                                               padding=1)),
+            "two_conv_tc_ms": lambda: convops._conv_tc_kernel(
+                [convops._conv_tc_kernel([x], w1, b1, 1, True, None)], w2, b2, 1, True, None),
+        }
     else:
         _, xsig, w1sig, w2sig = key
         out_dt = in_dt = xsig[1]
@@ -463,6 +521,7 @@ def check_call(key, g):
         ms=time_ms(kern), plain_ms=time_ms(plain),
         library_ms=time_ms(library) if library else None,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+        **{k: time_ms(f) for k, f in yardsticks.items()},
     )
 
 
@@ -528,6 +587,29 @@ def readings(eng, frame, outs):
 
     out = torch.cat(outs).float()
     return out, (out - step1_dense(eng, frame))[:, 45:H - 45, 20:]
+
+
+def readings_f64(eng, frame, model64):
+    """``readings`` of ``frame`` through ``model64``, the float64 twin of
+    ``eng.model`` (:func:`f64_twin`), on the plain path: the u8 RGB enters
+    as its f64 values, which the u8 conv decodes to."""
+    import torch
+
+    rgb = [eng._stage(frame[i], 3).double() for i in (0, 2)]
+    depth = [eng._decode_depth(eng._stage(frame[i], 1)).double() for i in (1, 3)]
+    out = torch.cat(model64.export(rgb[0], depth[0], rgb[1], depth[1]))
+    dense = model64.step1(torch.cat(depth))[0].reshape(2, H, W, 1)
+    return out, (out - dense)[:, 45:H - 45, 20:]
+
+
+def f64_twin(model):
+    """``model`` with its weights as held, computing in float64 throughout:
+    the reference that tells a kernel path's rounding from an error."""
+    import torch
+
+    twin = copy.deepcopy(model).double()
+    twin.dtype = torch.float64
+    return twin
 
 
 @contextmanager
@@ -949,16 +1031,29 @@ def main() -> int:
                 f"x{count} rel_rmse {res['err']:.2e} (bar {res['bar']:.0e}) max_abs {res['abs_err']:.2e} "
                 f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
                 f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
-                f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+                f"bound {res['bound_ms']:.4f} ({res['bound_by']})"
+                + "".join(f" {y[:-3]} {res[y]:.4f}" for y in YARDSTICKS if y in res))
             if not ok:
                 failures.append((key, res["err"]))
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")
+    for kname in ("conv_thin", "conv_chain_tc"):  # the mixed frame's sums beside their yardsticks
+        mine = [(k, r) for k, r in results.items() if k[0] == kname and k in rec["mixed"]]
+        tot = {f: sum(r[f] * rec["mixed"][k] for k, r in mine)
+               for f in ("ms", "plain_ms", "bound_ms", "library_ms", *YARDSTICKS) if all(f in r and r[f] is not None
+                                                                                         for _, r in mine)}
+        log(f"per mixed frame {kname}: " + ", ".join(f"{f} {v:.4f}" for f, v in tot.items())
+            + f"; share of bound {tot['bound_ms'] / tot['ms']:.1%}")
 
     # -- 3. the main path: two-stream requests through StreamingEngine
     with torch.no_grad():
         with plain_versions():
             ref = {n: [readings(e, f, e(*f)) for f in frames[:2]] for n, e in engines.items()}
+            ref64 = {}
+            for n, e in engines.items():
+                twin = f64_twin(e.model)
+                ref64[n] = [readings_f64(e, f, twin) for f in frames[:2]]
+                del twin
         summary, engine_counts = {}, {}
         for name in ("f32", "mixed"):
             eng = engines[name]
@@ -990,11 +1085,19 @@ def main() -> int:
             stats = benchmark(eng, n_frames=N_REQUESTS * 2, warmup=2, frame_factory=lambda i: frames[i % len(frames)])
             summary[name] = dict(**{k: v for k, (v, _) in checks.items()}, p50_ms=stats.p50_ms,
                                  p90_ms=stats.p90_ms, counts=counts)
+            # beside the bars: each path's distance from the f64 plain run
+            dist = lambda rd, j: max(rel_rmse(rd[i][j], ref64[name][i][j]) for i in range(2))
+            f64 = {path: {"output": dist(rd, 0), "residual": dist(rd, 1)}
+                   for path, rd in (("kernel", got), ("plain", ref[name]))}
+            summary[name]["vs_f64"] = f64
             missed = {k: v for k, v in checks.items() if v[0] > v[1]}
             log(f"[{'FAIL' if missed else 'ok'}] engine {name}: {N_REQUESTS} requests, "
                 + ", ".join(f"{k} {v:.2e} (bar {b:.0e})" for k, (v, b) in checks.items())
                 + f"; p50 {stats.p50_ms:.3f} ms p90 {stats.p90_ms:.3f} ms per two-stream frame "
                 f"({stats.clock}); launches {counts}")
+            log(f"    engine {name} distance from the f64 plain run: "
+                + "; ".join(f"{path} path output {d['output']:.2e} residual {d['residual']:.2e}"
+                            for path, d in f64.items()))
             if missed:
                 raise SystemExit(f"chip_smoke: engine {name} misses its bars: {missed}")
 

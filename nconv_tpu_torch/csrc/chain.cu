@@ -2,7 +2,8 @@
 // kept in shared memory:  out = relu(conv(relu(conv(x, w1) + b1), w2) + b2).
 //
 // Replaces nconv_tpu/ops/pallas_chain.py:_chain_kernel (N = 2, the fusion
-// stages' fuse_conv2 -> fuse_conv3).
+// stages' fuse_conv2 -> fuse_conv3) in f32; bf16 runs on the tensor cores
+// (conv_chain_tc.cu).
 //
 // Bound on the H100: bytes at the block level. Two separate launches would
 // write the intermediate (32-64 channels) to device memory and read it
@@ -13,10 +14,6 @@
 // stage-1 arithmetic. The intermediate is rounded to the storage type, as
 // two separate convs would store it.
 #include "common.cuh"
-
-#ifndef NCT_DYN_SHARED
-#define NCT_DYN_SHARED(T, name) extern __shared__ __align__(16) T name[]
-#endif
 
 namespace nct {
 
@@ -157,9 +154,8 @@ template <typename T>
 static int launch(const ChainArgs& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * a.cmid * H_MPIX;
   void (*k)(const ChainArgs) = chain_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  int resident = 0;  // raises k's shared-memory limit, once per device
+  if (const int e = resident_blocks(k, H_THREADS, smem, resident)) return e;
   const dim3 grid((a.W + H_TW - 1) / H_TW, (a.H + H_TH - 1) / H_TH, a.B);
   NCT_LAUNCH(k, grid, dim3(H_THREADS), smem, st, a);
   return static_cast<int>(cudaGetLastError());
@@ -167,8 +163,8 @@ static int launch(const ChainArgs& a, cudaStream_t st) {
 
 }  // namespace nct
 
-// Plain C entry; one storage type (F32 or BF16) for x, intermediate and
-// output. cmid must be a multiple of 8.
+// Plain C entry; f32 x, intermediate and output (the bf16 chain runs on the
+// tensor cores, conv_chain_tc.cu). cmid must be a multiple of 8.
 extern "C" int nct_conv_chain2(const void* x, int dtype, int B, int H, int W,
                                int cin, int cmid, int cout, const float* w1,
                                const float* b1, const float* w2,
@@ -178,6 +174,5 @@ extern "C" int nct_conv_chain2(const void* x, int dtype, int B, int H, int W,
   ChainArgs a{x, B, H, W, cin, cmid, cout, w1, b1, w2, b2, out};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == F32) return launch<float>(a, st);
-  if (dtype == BF16) return launch<__nv_bfloat16>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,11 +12,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 // Kernel launch through a function pointer; a build may predefine it to run
 // the kernels elsewhere than on the card.
 #ifndef NCT_LAUNCH
 #define NCT_LAUNCH(kernel, grid, block, smem, stream, ...) \
   kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#endif
+
+#ifndef NCT_DYN_SHARED
+#define NCT_DYN_SHARED(T, name) extern __shared__ __align__(16) T name[]
 #endif
 
 namespace nct {
@@ -59,6 +66,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
+// A weight or bias element stored as f32 (bf16 = 0) or bf16 (bf16 = 1), as f32.
+__device__ __forceinline__ float load_w(const void* p, int bf16, long long i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
 // The value an f32 takes after a round trip through storage type T.
 template <typename T>
 __device__ __forceinline__ float round_as(float v) {
@@ -85,6 +98,46 @@ __device__ __forceinline__ float load_parts(const Part* parts, int nparts,
   }
   return load_f<T>(static_cast<const T*>(q.ptr),
                    b * q.sb + c * q.sc + y * q.sh + x * q.sw);
+}
+
+constexpr size_t MAX_SMEM = 232448;  // 227 KB, a block's most on sm_90
+
+// Host side: blocks of kernel k that fit on the current device at (threads,
+// smem), after raising k's dynamic shared-memory limit there to all that its
+// static shared memory leaves of MAX_SMEM (so one setting serves every smem
+// a kernel is launched with). The attribute and the occupancy belong to a
+// device, so both are set and queried once per (device, kernel, threads,
+// smem); the caller launches with the tensors' device current
+// (kernels.launch on the Python side).
+template <class K>
+int resident_blocks(K k, int threads, size_t smem, int& blocks) {
+  struct Entry {
+    int dev;
+    K k;
+    int threads;
+    size_t smem;
+    int blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& s : seen)
+    if (s.dev == dev && s.k == k && s.threads == threads && s.smem == smem) return blocks = s.blocks, 0;
+  int sms = 0, per_sm = 0;
+  cudaFuncAttributes fa{};
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(MAX_SMEM - fa.sharedSizeBytes));
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  seen.push_back({dev, k, threads, smem, blocks = per_sm * sms});
+  return 0;
 }
 
 // Host side: copy n part descriptors from the flat arrays of the C ABI

@@ -5,7 +5,9 @@
 // nct_conv_kxk): K in {1, 3, 5} at stride 1, and 4x4 at stride 2, f32 in
 // and out, or bf16 in and out for the 3x3 and 4x4 forms. The bf16 -> bf16
 // forward with 8 or more output channels runs on the tensor cores instead
-// (conv_tc.cu); here bf16 -> bf16 is only the narrow heads.
+// (conv_tc.cu), and the stride-1 bf16 outputs of narrow heads and of the
+// uint8 frame on the thin form (conv_thin.cu); here bf16 out is only their
+// stride-2 forms.
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel in its stride-1,
 // residual_channels, multi-part, uint8-decode and stride-2 (lane_stride2 /
@@ -267,14 +269,16 @@ extern "C" int nct_conv3x3(const void* const* part_ptrs,
       return dispatch_stride<float, float>(a, stride, res, st);
     case BF16:
       if (!bf_out) return dispatch_stride<__nv_bfloat16, float>(a, stride, res, st);
-      // bf16 -> bf16 here only below 8 output channels (the depth heads);
-      // wider ones run on the tensor cores (conv_tc.cu)
-      if (res || cout >= 8) return static_cast<int>(cudaErrorInvalidValue);
-      return stride == 1 ? launch<__nv_bfloat16, __nv_bfloat16, 1, 1, false>(a, st)
-                         : launch<__nv_bfloat16, __nv_bfloat16, 2, 1, false>(a, st);
+      // bf16 -> bf16 here only at stride 2 below 8 output channels; wider
+      // convs run on the tensor cores (conv_tc.cu), stride-1 heads on the
+      // thin form (conv_thin.cu)
+      if (res || cout >= 8 || stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+      return launch<__nv_bfloat16, __nv_bfloat16, 2, 1, false>(a, st);
     case U8:
-      return bf_out ? dispatch_stride<uint8_t, __nv_bfloat16>(a, stride, res, st)
-                    : dispatch_stride<uint8_t, float>(a, stride, res, st);
+      if (!bf_out) return dispatch_stride<uint8_t, float>(a, stride, res, st);
+      // u8 -> bf16 at stride 1 runs on the thin form (conv_thin.cu)
+      if (stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch_form<uint8_t, __nv_bfloat16, 2>(a, res, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

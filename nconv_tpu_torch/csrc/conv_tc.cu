@@ -6,8 +6,9 @@
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel (:128) in its bf16 stride-1,
 // residual_channels, multi-part, stride-2 and d2s_channels forms (the mixed
-// schedule's feature convs; f32, the uint8 frame and the 1-channel heads
-// stay on the CUDA-core kernels of conv.cu and convt.cu).
+// schedule's feature convs; f32 stays on the CUDA-core kernels of conv.cu
+// and convt.cu, the uint8 frame and the 1-channel heads run on conv_thin.cu,
+// and the bf16 conv chain on conv_chain_tc.cu, which shares tc.cuh).
 //
 // Bound on the H100: at 32-64 channels a 3x3 conv does 2*9*cout FLOP per
 // input value over (cin + cout) * 2 bytes, at the card's bf16 ridge (~295
@@ -37,39 +38,7 @@
 //    and run only its 4 taps, and the epilogue stores depth-to-space.
 //  * Epilogue: bias in f32, ReLU, the shortcut columns added, one rounding to
 //    bf16, staged in shared memory so the NCHW stores are 16-byte vectors.
-#include "common.cuh"
-
-#include <mutex>
-#include <vector>
-
-#ifndef NCT_DYN_SHARED
-#define NCT_DYN_SHARED(T, name) extern __shared__ __align__(16) T name[]
-#endif
-
-// The tensor-core primitives; a build may predefine NCT_TC_PRIMITIVES and
-// supply its own, as it may NCT_LAUNCH, to run the kernels elsewhere.
-#ifndef NCT_TC_PRIMITIVES
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-#endif
+#include "tc.cuh"
 
 namespace nct {
 namespace tc {
@@ -96,11 +65,6 @@ struct Args {
   int out_vec;         // 1: output rows may be written as 16-byte vectors
   int tiles_x, tiles_y, tiles;
 };
-
-__device__ __forceinline__ float load_w(const void* p, int bf16, long long i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
 
 template <int MODE, int TH>
 struct Geo {
@@ -138,26 +102,10 @@ __device__ __forceinline__ int part_of(const Args& a, int& c) {
   return p;
 }
 
-// A thread's walk over a flat index i = tid, tid + nthr, ... as the pair
-// (q, rest) = (i % n, i / n), one division at the start and none a step.
 // The input tile is loaded in units of four channels x 8 pixels of one tile
 // row (four 16-byte row pieces, stored as 8 channel-quads of 8 bytes): unit
 // i is quad q of group g, row yy, with rest = yy * G + g and n the quads per
-// pixel.
-struct Walk {
-  int q, rest, dq, dr, nq;
-  __device__ __forceinline__ Walk(int i, int nthr, int n)
-      : q(i % n), rest(i / n), dq(nthr % n), dr(nthr / n), nq(n) {}
-  __device__ __forceinline__ void next() {
-    q += dq;
-    rest += dr;
-    if (q >= nq) {
-      q -= nq;
-      ++rest;
-    }
-  }
-};
-
+// pixel (a Walk over the units).
 template <int G>
 __device__ __forceinline__ void load_unit(const Args& a, int b, int iy0, int x0, const Walk& w,
                                           uint4 (&v)[4]) {
@@ -183,10 +131,6 @@ __device__ __forceinline__ void load_unit(const Args& a, int b, int iy0, int x0,
   }
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // pixel j of the unit's four channels, as one 8-byte channel-quad
 template <int G, int IW>
 __device__ __forceinline__ void store_unit(const Args& a, unsigned short* u, const Walk& w,
@@ -196,10 +140,7 @@ __device__ __forceinline__ void store_unit(const Args& a, unsigned short* u, con
   for (int j = 0; j < 8; ++j) {
     const int xx = 8 * g + j - 7;
     if (xx < 0 || xx >= IW) continue;
-    const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;  // high or low halves of two words
-    const uint2 quad = make_uint2(__byte_perm(word(v[0], j >> 1), word(v[1], j >> 1), sel),
-                                  __byte_perm(word(v[2], j >> 1), word(v[3], j >> 1), sel));
-    *reinterpret_cast<uint2*>(u + (yy * IW + xx) * a.cps + 4 * w.q) = quad;
+    *reinterpret_cast<uint2*>(u + (yy * IW + xx) * a.cps + 4 * w.q) = quad_of(v, j);
   }
 }
 
@@ -458,30 +399,6 @@ inline size_t smem_bytes(int mode, bool res, int th, int coutp, int cps) {
   const size_t out = static_cast<size_t>(coutp) * (oh * ow + 8) * 2;
   const int nslots = mode == T ? 16 : (res ? 10 : 9);
   return static_cast<size_t>(nslots) * coutp * cps * 2 + coutp * 4 + (in > out ? in : out);
-}
-
-constexpr size_t MAX_SMEM = 232448;  // 227 KB, a block's most on sm_90
-
-// Resident blocks of kernel k on the card at (threads, smem), queried once
-// per (kernel, threads, smem): the persistent grid.
-template <class K>
-int resident_blocks(K k, int threads, size_t smem, int& blocks) {
-  struct Entry { K k; int threads; size_t smem; int blocks; };
-  static std::mutex mu;
-  static std::vector<Entry> seen;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& e : seen)
-    if (e.k == k && e.threads == threads && e.smem == smem) return blocks = e.blocks, 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(MAX_SMEM));
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  seen.push_back({k, threads, smem, blocks = per_sm * sms});
-  return 0;
 }
 
 template <int MODE, bool RES, int NTP, int WM>

@@ -7,9 +7,12 @@ link) into a shared library with a plain C interface under
 The library's file name carries a hash of the sources and flags, so an edit
 rebuilds it. Nothing here runs at import time.
 
-Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
-launches its kernel, and nowhere else, so a caller can show which kernels a
-run went through (:func:`reset_launch_counts`, :func:`launch_counts`).
+Every kernel wrapper launches through :func:`launch`, which makes the
+tensors' device current for the call (the launch, a kernel's shared-memory
+attribute and its occupancy query all act on the current device) and adds
+one to the kernel's entry of :data:`LAUNCHES`, and nowhere else, so a
+caller can show which kernels a run went through
+(:func:`reset_launch_counts`, :func:`launch_counts`).
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ NVCC_FLAGS = [
 
 # launches per kernel, counted by the wrappers in ops/
 LAUNCHES: dict[str, int] = {
-    "nconv": 0, "conv": 0, "conv_tc": 0, "conv_transpose": 0, "conv_transpose_tc": 0,
-    "conv_chain": 0,
+    "nconv": 0, "conv": 0, "conv_tc": 0, "conv_thin": 0, "conv_transpose": 0, "conv_transpose_tc": 0,
+    "conv_chain": 0, "conv_chain_tc": 0,
     "conv_kxk": 0, "filtergrad": 0,
     "conv4x4s2": 0, "conv_transpose3x3s2": 0, "wgrad": 0,
 }
@@ -53,7 +56,9 @@ _SIGNATURES = {
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
     "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
     "nct_conv_tc": [P, P, I, I, I, I, I, I, I, P, I, P, P, I, P, I, P],
+    "nct_conv_thin": [P, P, I, I, I, I, I, I, I, P, P, P, I, P, I, P],
     "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
+    "nct_conv_chain_tc": [P, I, I, I, I, I, I, P, P, P, P, I, P, P],
     "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad_tiles": [I, I, I],
@@ -202,14 +207,36 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def check(code: int, what: str) -> None:
-    if code != 0:
-        msg = lib().nct_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+class device_guard:
+    """``t``'s CUDA device made current while entered, the previous one
+    after (``torch.cuda.device``'s switch, without its argument parsing: a
+    guard wraps every launch)."""
+
+    __slots__ = ("idx", "prev")
+
+    def __init__(self, t: torch.Tensor):
+        self.idx = t.device.index
+
+    def __enter__(self):
+        self.prev = torch.cuda._exchange_device(self.idx)
+
+    def __exit__(self, *exc):
+        torch.cuda._maybe_exchange_device(self.prev)
+        return False
 
 
-def ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
+def launch(counter: str, entry: str, on: torch.Tensor, *args) -> None:
+    """Call the library's launcher ``entry(*args, stream)``, each tensor in
+    ``args`` passed as its data pointer, inside :func:`device_guard` of
+    ``on`` (a tensor the kernel writes) and on the current stream of ``on``'s
+    device; raise on a CUDA error, else count one launch of ``counter``."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    fn = getattr(_lib or lib(), entry)
+    with device_guard(on):
+        code = fn(*args, stream_of(on))
+    if code:
+        raise RuntimeError(f"{counter} kernel: CUDA error {code} ({lib().nct_error_string(code).decode()})")
+    LAUNCHES[counter] += 1
 
 
 def part_args(parts: list[torch.Tensor], up2: list[bool]):

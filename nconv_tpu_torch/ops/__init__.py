@@ -23,6 +23,7 @@ from .convops import (
     conv_transpose4x4s2_input_grad_plain,
     conv_transpose4x4s2_plain,
     on_tensor_cores,
+    on_thin,
 )
 from .nconv import (
     EPS_DEFAULT,
@@ -45,6 +46,6 @@ __all__ = [
     "conv_transpose4x4s2_input_grad_plain", "conv_transpose4x4s2_plain",
     "conv_transpose4x4s2_trainable", "downscale_bilinear",
     "max_pool2x2", "max_pool_pair", "nconv2d", "nconv2d_fused",
-    "nconv2d_fused_plain", "nconv2d_trainable", "on_tensor_cores",
+    "nconv2d_fused_plain", "nconv2d_trainable", "on_tensor_cores", "on_thin",
     "resize_bilinear", "resize_nearest",
 ]

@@ -9,15 +9,20 @@ Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
     optional residual epilogue ``relu(conv3x3 + b) + conv1x1``, input as a
     list of parts of one storage type (f32, bf16 or uint8 decoded as raw
     0..255 values). bf16 parts with a bf16 output and cout >= 8 run on the
-    tensor cores (``csrc/conv_tc.cu``, counter ``conv_tc``); every other
-    call (f32, the uint8 frame, the 1-channel heads) on the CUDA cores
+    tensor cores (``csrc/conv_tc.cu``, counter ``conv_tc``); a bf16 output
+    at stride 1 from uint8 parts (the mixed schedule's frame encoder) or
+    from bf16 parts with cout < 8 (its depth heads) on the thin CUDA-core
+    form (``csrc/conv_thin.cu``, counter ``conv_thin``); every other call
+    (f32, and stride 2 below 8 channels) on the CUDA cores
     (``csrc/conv.cu``, counter ``conv``);
   * :func:`conv_transpose4x4s2` — K3: 4x4/s2/p1 transpose conv + bias +
     ReLU over parts; bf16 on the tensor cores (``csrc/conv_tc.cu``,
     ``conv_transpose_tc``), f32 on the CUDA cores (``csrc/convt.cu``,
     ``conv_transpose``);
-  * :func:`conv3x3_chain2` — K4 (``csrc/chain.cu``): two 3x3 conv + bias +
-    ReLU stages with the intermediate kept on chip.
+  * :func:`conv3x3_chain2` — K4: two 3x3 conv + bias + ReLU stages with
+    the intermediate kept on chip; bf16 on the tensor cores
+    (``csrc/conv_chain_tc.cu``, ``conv_chain_tc``), f32 on the CUDA cores
+    (``csrc/chain.cu``, ``conv_chain``).
 
 Gradients, for the training backward (f32, and bf16 operands in the mixed
 schedule except K5):
@@ -109,6 +114,14 @@ def on_tensor_cores(parts_dtype: torch.dtype, out_dtype: torch.dtype, cout: int)
     return parts_dtype == torch.bfloat16 and out_dtype == torch.bfloat16 and cout >= 8
 
 
+def on_thin(parts_dtype: torch.dtype, out_dtype: torch.dtype, cout: int, stride: int) -> bool:
+    """Whether :func:`conv3x3` runs a call on the thin CUDA-core form (a
+    bf16 output at stride 1 from uint8 parts, or from bf16 parts with fewer
+    than 8 output channels)."""
+    return stride == 1 and out_dtype == torch.bfloat16 and (
+        parts_dtype == torch.uint8 or (parts_dtype == torch.bfloat16 and cout < 8))
+
+
 def _grad_dtype(*ts):
     """The one dtype that a gradient call's tensors share; raises on mixed
     or unsupported dtypes."""
@@ -158,6 +171,8 @@ def conv3x3(
                              shortcut=shortcut, out_dtype=out_dtype)
     if on_tensor_cores(parts[0].dtype, out_dtype, weight.shape[0]):
         return _conv_tc_kernel(parts, weight, bias, stride, relu, shortcut)
+    if on_thin(parts[0].dtype, out_dtype, weight.shape[0], stride):
+        return _conv_thin_kernel(parts, weight, bias, relu, shortcut)
     return _conv3x3_kernel(parts, weight, bias, stride, relu, shortcut, out_dtype)
 
 
@@ -190,6 +205,8 @@ def _conv3x3_kernel(parts, weight, bias, stride, relu, shortcut, out_dtype):
         raise TypeError("K2 keeps float32 inputs in float32")
     if on_tensor_cores(parts[0].dtype, out_dtype, cout):
         raise ValueError("bf16 -> bf16 convs with cout >= 8 run on the tensor-core form (conv_tc)")
+    if on_thin(parts[0].dtype, out_dtype, cout, stride):
+        raise ValueError("stride-1 uint8 -> bf16 convs and bf16 heads run on the thin form (conv_thin)")
     if shortcut is not None and tuple(shortcut.shape) != (cout, cin, 1, 1):
         raise ValueError(f"K2 shortcut {tuple(shortcut.shape)} is not ({cout}, {cin}, 1, 1)")
     if shortcut is not None and parts[0].dtype == out_dtype == torch.bfloat16:
@@ -198,14 +215,35 @@ def _conv3x3_kernel(parts, weight, bias, stride, relu, shortcut, out_dtype):
     w32, b32, s32 = _f32(_round_for(parts, weight)), _f32(bias), _f32(_round_for(parts, shortcut))
     out = torch.empty((b, cout, ho, wo), device=parts[0].device, dtype=out_dtype)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
-    code = kernels.lib().nct_conv3x3(
-        ptrs, meta, len(parts), kernels.DTYPE_CODE[parts[0].dtype],
-        kernels.DTYPE_CODE[out_dtype], b, h, w, cin, ho, wo, cout, stride,
-        w32.data_ptr(), kernels.ptr(s32), kernels.ptr(b32), out.data_ptr(),
-        int(relu), kernels.stream_of(out),
-    )
-    kernels.check(code, "conv3x3 kernel")
-    kernels.LAUNCHES["conv"] += 1
+    kernels.launch("conv", "nct_conv3x3", out, ptrs, meta, len(parts), kernels.DTYPE_CODE[parts[0].dtype],
+                   kernels.DTYPE_CODE[out_dtype], b, h, w, cin, ho, wo, cout, stride, w32, s32, b32, out,
+                   int(relu))
+    return out
+
+
+def _conv_thin_kernel(parts, weight, bias, relu, shortcut):
+    kernels.no_graph("conv_thin", *parts, weight, bias, shortcut)
+    b, h, w = _check_same_geometry(parts)
+    cout, cin = weight.shape[:2]
+    u8 = parts[0].dtype == torch.uint8
+    if tuple(weight.shape[2:]) != (3, 3) or sum(p.shape[1] for p in parts) != cin:
+        raise ValueError(f"K2 weight {tuple(weight.shape)} does not fit the parts")
+    if len(parts) > 4 or not on_thin(parts[0].dtype, torch.bfloat16, cout, 1):
+        raise ValueError("the thin form takes at most 4 uint8 parts, or bf16 parts with cout < 8, to bf16")
+    if (cin > 4) if u8 else (cin > 256 or shortcut is not None):
+        raise ValueError("the thin form decodes at most 4 uint8 channels, and its bf16 form takes at most "
+                         "256 channels and no shortcut")
+    if shortcut is not None and tuple(shortcut.shape) != (cout, cin, 1, 1):
+        raise ValueError(f"K2 shortcut {tuple(shortcut.shape)} is not ({cout}, {cin}, 1, 1)")
+    # as stored: the kernel reads the weights rounded to bf16 over bf16 parts
+    # (as _round_for), as stored over uint8 parts, the bias as stored
+    wt, st, bt = (None if t is None else t.contiguous() for t in (weight, shortcut, bias))
+    if len({t.dtype for t in (wt, st, bt) if t is not None}) != 1:
+        raise TypeError("the thin form reads its weights and bias in one dtype")
+    out = torch.empty((b, cout, h, w), device=parts[0].device, dtype=torch.bfloat16)
+    ptrs, meta = kernels.part_args(parts, [False] * len(parts))
+    kernels.launch("conv_thin", "nct_conv_thin", out, ptrs, meta, len(parts), kernels.DTYPE_CODE[parts[0].dtype],
+                   b, h, w, cin, cout, wt, st, bt, _weight_code(wt, "conv_thin"), out, int(relu))
     return out
 
 
@@ -224,14 +262,9 @@ def _conv_tc_kernel(parts, weight, bias, stride, relu, shortcut):
     wt, bt, st = _stored(weight), _stored(bias), _stored(shortcut)
     out = torch.empty((b, cout, ho, wo), device=parts[0].device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
-    code = kernels.lib().nct_conv_tc(
-        ptrs, meta, len(parts), b, h, w, cin, cout, stride - 1, wt.data_ptr(),
-        _weight_code(wt, "conv_tc"), kernels.ptr(st), kernels.ptr(bt),
-        0 if bt is None else _weight_code(bt, "conv_tc"), out.data_ptr(), int(relu),
-        kernels.stream_of(out),
-    )
-    kernels.check(code, "conv_tc kernel")
-    kernels.LAUNCHES["conv_tc"] += 1
+    kernels.launch("conv_tc", "nct_conv_tc", out, ptrs, meta, len(parts), b, h, w, cin, cout, stride - 1, wt,
+                   _weight_code(wt, "conv_tc"), st, bt, 0 if bt is None else _weight_code(bt, "conv_tc"), out,
+                   int(relu))
     return out
 
 
@@ -277,13 +310,8 @@ def _conv_transpose_kernel(parts, weight, bias, relu):
     w32, b32 = _f32(weight), _f32(bias)
     out = torch.empty((b, cout, 2 * h, 2 * w), device=parts[0].device, dtype=parts[0].dtype)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
-    code = kernels.lib().nct_conv_transpose4x4s2(
-        ptrs, meta, len(parts), kernels.DTYPE_CODE[parts[0].dtype], b, h, w,
-        cin, cout, w32.data_ptr(), kernels.ptr(b32), out.data_ptr(), int(relu),
-        kernels.stream_of(out),
-    )
-    kernels.check(code, "conv_transpose kernel")
-    kernels.LAUNCHES["conv_transpose"] += 1
+    kernels.launch("conv_transpose", "nct_conv_transpose4x4s2", out, ptrs, meta, len(parts),
+                   kernels.DTYPE_CODE[parts[0].dtype], b, h, w, cin, cout, w32, b32, out, int(relu))
     return out
 
 
@@ -298,14 +326,9 @@ def _conv_transpose_tc_kernel(parts, weight, bias, relu):
     wt, bt = _stored(weight), _stored(bias)
     out = torch.empty((b, cout, 2 * h, 2 * w), device=parts[0].device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
-    code = kernels.lib().nct_conv_tc(
-        ptrs, meta, len(parts), b, h, w, cin, cout, 2, wt.data_ptr(),
-        _weight_code(wt, "conv_transpose_tc"), None, kernels.ptr(bt),
-        0 if bt is None else _weight_code(bt, "conv_transpose_tc"), out.data_ptr(), int(relu),
-        kernels.stream_of(out),
-    )
-    kernels.check(code, "conv_transpose_tc kernel")
-    kernels.LAUNCHES["conv_transpose_tc"] += 1
+    kernels.launch("conv_transpose_tc", "nct_conv_tc", out, ptrs, meta, len(parts), b, h, w, cin, cout, 2, wt,
+                   _weight_code(wt, "conv_transpose_tc"), None, bt,
+                   0 if bt is None else _weight_code(bt, "conv_transpose_tc"), out, int(relu))
     return out
 
 
@@ -315,36 +338,57 @@ def _conv_transpose_tc_kernel(parts, weight, bias, relu):
 
 def conv3x3_chain2(x, w1, b1, w2, b2) -> torch.Tensor:
     """``relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2)``, pad 1, with
-    the intermediate rounded to ``x.dtype`` as a stored tensor would be."""
+    the intermediate rounded to ``x.dtype`` as a stored tensor would be; on
+    a bf16 ``x`` the weights are read rounded to bf16 (as :func:`conv3x3`
+    reads them), the biases as held."""
     if not kernels.on_card(x, w1, b1, w2, b2):
         return conv3x3_chain2_plain(x, w1, b1, w2, b2)
+    if x.dtype == torch.bfloat16:
+        return _chain_tc_kernel(x, w1, b1, w2, b2)
     return _chain_kernel(x, w1, b1, w2, b2)
 
 
 def conv3x3_chain2_plain(x, w1, b1, w2, b2):
     """The plain PyTorch version of :func:`conv3x3_chain2`."""
-    mid = torch.relu(conv2d(x.float(), w1.float(), b1.float(), padding=1)).to(x.dtype)
-    y = torch.relu(conv2d(mid.float(), w2.float(), b2.float(), padding=1))
+    w1, w2 = (_wide(_round_for([x], t)) for t in (w1, w2))
+    mid = torch.relu(conv2d(kernels.widen(x), w1, _wide(b1), padding=1)).to(x.dtype)
+    y = torch.relu(conv2d(kernels.widen(mid), w2, _wide(b2), padding=1))
     return y.to(x.dtype)
 
 
-def _chain_kernel(x, w1, b1, w2, b2):
-    kernels.no_graph("conv_chain", x, w1, b1, w2, b2)
+def _check_chain(x, w1, w2):
     b, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
     if tuple(w1.shape) != (cmid, cin, 3, 3) or tuple(w2.shape) != (cout, cmid, 3, 3):
         raise ValueError(f"K4 weights {tuple(w1.shape)}, {tuple(w2.shape)} do not chain")
-    if x.dtype not in _FLOAT_OUT or not x.is_contiguous() or cmid % 8:
-        raise ValueError("K4 takes a contiguous float32/bfloat16 input and cmid % 8 == 0")
+    if not x.is_contiguous():
+        raise ValueError("K4 takes a contiguous input")
+    return b, cin, h, w, cmid, cout
+
+
+def _chain_kernel(x, w1, b1, w2, b2):
+    kernels.no_graph("conv_chain", x, w1, b1, w2, b2)
+    b, cin, h, w, cmid, cout = _check_chain(x, w1, w2)
+    if x.dtype != torch.float32 or cmid % 8:
+        raise ValueError("K4's CUDA-core form takes float32 (bf16: conv_chain_tc) and cmid % 8 == 0")
     out = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype)
-    w1_, b1_, w2_, b2_ = map(_f32, (w1, b1, w2, b2))
-    code = kernels.lib().nct_conv_chain2(
-        x.data_ptr(), kernels.DTYPE_CODE[x.dtype], b, h, w, cin, cmid, cout,
-        w1_.data_ptr(), b1_.data_ptr(), w2_.data_ptr(), b2_.data_ptr(),
-        out.data_ptr(), kernels.stream_of(out),
-    )
-    kernels.check(code, "conv_chain kernel")
-    kernels.LAUNCHES["conv_chain"] += 1
+    kernels.launch("conv_chain", "nct_conv_chain2", out, x, kernels.DTYPE_CODE[x.dtype], b, h, w, cin, cmid, cout,
+                   *map(_f32, (w1, b1, w2, b2)), out)
+    return out
+
+
+def _chain_tc_kernel(x, w1, b1, w2, b2):
+    kernels.no_graph("conv_chain_tc", x, w1, b1, w2, b2)
+    b, cin, h, w, cmid, cout = _check_chain(x, w1, w2)
+    ws = [_stored(t) for t in (w1, b1, w2, b2)]
+    if x.dtype != torch.bfloat16 or not (1 <= cmid <= 64 and 1 <= cout <= 64):
+        raise ValueError("K4's tensor-core form takes bfloat16 and cmid, cout up to 64")
+    if len({t.dtype for t in ws}) != 1:
+        raise TypeError(f"K4's tensor-core form reads its weights and biases in one dtype, got "
+                        f"{[t.dtype for t in ws]}")
+    out = torch.empty((b, cout, h, w), device=x.device, dtype=torch.bfloat16)
+    kernels.launch("conv_chain_tc", "nct_conv_chain_tc", out, x, b, h, w, cin, cmid, cout, *ws,
+                   _weight_code(ws[0], "conv_chain_tc"), out)
     return out
 
 
@@ -422,15 +466,10 @@ def _conv_kxk_kernel(x, weight, padding, stride):
         raise TypeError(f"K2 k x k form takes float32 or bfloat16, got {x.dtype}")
     b, cin, h, w = x.shape
     cout, k = weight.shape[0], weight.shape[-1]
-    w32 = _f32(weight)
     out = torch.empty((b, cout, ho, wo), device=x.device, dtype=x.dtype)
     ptrs, meta = kernels.part_args([x], [False])
-    code = kernels.lib().nct_conv_kxk(
-        ptrs, meta, kernels.DTYPE_CODE[x.dtype], b, h, w, cin, ho, wo, cout, k, stride, padding,
-        w32.data_ptr(), out.data_ptr(), kernels.stream_of(out),
-    )
-    kernels.check(code, "conv_kxk kernel")
-    kernels.LAUNCHES["conv_kxk" if stride == 1 else "conv4x4s2"] += 1
+    kernels.launch("conv_kxk" if stride == 1 else "conv4x4s2", "nct_conv_kxk", out, ptrs, meta,
+                   kernels.DTYPE_CODE[x.dtype], b, h, w, cin, ho, wo, cout, k, stride, padding, _f32(weight), out)
     return out
 
 
@@ -465,15 +504,10 @@ def _conv_transpose3x3s2_kernel(cot, weight):
         raise TypeError(f"K3 3x3/s2 form takes float32 or bfloat16, got {cot.dtype}")
     b, cin, h, w = cot.shape
     cout = weight.shape[1]
-    w32 = _f32(weight)
     out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device, dtype=cot.dtype)
     ptrs, meta = kernels.part_args([cot], [False])
-    code = kernels.lib().nct_conv_transpose3x3s2(
-        ptrs, meta, kernels.DTYPE_CODE[cot.dtype], b, h, w, cin, cout, w32.data_ptr(),
-        out.data_ptr(), kernels.stream_of(out),
-    )
-    kernels.check(code, "conv_transpose3x3s2 kernel")
-    kernels.LAUNCHES["conv_transpose3x3s2"] += 1
+    kernels.launch("conv_transpose3x3s2", "nct_conv_transpose3x3s2", out, ptrs, meta,
+                   kernels.DTYPE_CODE[cot.dtype], b, h, w, cin, cout, _f32(weight), out)
     return out
 
 
@@ -533,16 +567,11 @@ def _filtergrad_kernel(x, g, ksize, padding, pad_top):
     if x.dtype != torch.float32 or g.dtype != torch.float32:
         raise TypeError(f"K5 takes float32, got {x.dtype} and {g.dtype}")
     x, g = x.contiguous(), g.contiguous()
-    lib = kernels.lib()
-    part = torch.empty((lib.nct_filtergrad_tiles(b, ho, wo), cout * cin * ksize * ksize),
+    part = torch.empty((kernels.lib().nct_filtergrad_tiles(b, ho, wo), cout * cin * ksize * ksize),
                        device=x.device)
     out = torch.empty((cout, cin, ksize, ksize), device=x.device)
-    code = lib.nct_filtergrad(
-        x.data_ptr(), g.data_ptr(), b, cin, h, w, cout, ho, wo, ksize, pad_top,
-        padding, part.data_ptr(), out.data_ptr(), kernels.stream_of(out),
-    )
-    kernels.check(code, "filtergrad kernel")
-    kernels.LAUNCHES["filtergrad"] += 1
+    kernels.launch("filtergrad", "nct_filtergrad", out, x, g, b, cin, h, w, cout, ho, wo, ksize, pad_top, padding,
+                   part, out)
     return out
 
 
@@ -582,17 +611,11 @@ def _wgrad_kernel(x_parts, g_parts, ksize, stride, padding):
     if _grad_dtype(*x_parts, *g_parts) not in _FLOAT_OUT:
         raise TypeError("K6 takes float32 or bfloat16 parts")
     cin, m = sum(p.shape[1] for p in x_parts), sum(p.shape[1] for p in g_parts)
-    lib = kernels.lib()
-    part = torch.empty((lib.nct_wgrad_slices(b, ho, wo, m, cin * ksize * ksize), m, cin * ksize * ksize),
+    part = torch.empty((kernels.lib().nct_wgrad_slices(b, ho, wo, m, cin * ksize * ksize), m, cin * ksize * ksize),
                        device=x_parts[0].device)
     out = torch.empty((m, cin, ksize, ksize), device=x_parts[0].device)
     gptrs, gmeta = kernels.part_args(g_parts, [False] * len(g_parts))
     xptrs, xmeta = kernels.part_args(x_parts, [False] * len(x_parts))
-    code = lib.nct_wgrad(
-        gptrs, gmeta, len(g_parts), xptrs, xmeta, len(x_parts), kernels.DTYPE_CODE[x_parts[0].dtype],
-        b, m, cin, h, w, ho, wo,
-        ksize, stride, padding, part.data_ptr(), out.data_ptr(), kernels.stream_of(out),
-    )
-    kernels.check(code, "wgrad kernel")
-    kernels.LAUNCHES["wgrad"] += 1
+    kernels.launch("wgrad", "nct_wgrad", out, gptrs, gmeta, len(g_parts), xptrs, xmeta, len(x_parts),
+                   kernels.DTYPE_CODE[x_parts[0].dtype], b, m, cin, h, w, ho, wo, ksize, stride, padding, part, out)
     return out

@@ -176,17 +176,10 @@ def _nconv2d_kernel(d_parts, c_parts, weight, bias, padding, up2, crop,
     if pool_out:
         pout = torch.empty((b, cout, ho // 2, wo // 2), device=dev)
         pconf = torch.empty_like(pout)
-    lib = kernels.lib()
     dptrs, meta = kernels.part_args(d_parts, up2)
     cptrs, _ = kernels.part_args(c_parts, up2)
-    code = lib.nct_nconv(
-        dptrs, cptrs, meta, len(d_parts), b, h, w, cin, ho, wo, cout, k,
-        padding - crop, float(eps), w32.data_ptr(), b32.data_ptr(),
-        ksum.data_ptr(), out.data_ptr(), conf.data_ptr(),
-        kernels.ptr(pout), kernels.ptr(pconf), kernels.stream_of(out),
-    )
-    kernels.check(code, "nconv kernel")
-    kernels.LAUNCHES["nconv"] += 1
+    kernels.launch("nconv", "nct_nconv", out, dptrs, cptrs, meta, len(d_parts), b, h, w, cin, ho, wo, cout, k,
+                   padding - crop, float(eps), w32, b32, ksum, out, conf, pout, pconf)
     if pool_out:
         return out, conf, pout, pconf
     return out, conf

@@ -54,11 +54,17 @@ def make_guided_predict(model: GuidedDepthNet):
     """``predict(batch)``: the guided net's finest scale, single stream (the
     reference feeds one input to both streams and reads stream 0, which the
     single-stream forward equals), in eval mode (BN on its running
-    statistics) under ``torch.no_grad()``, on the model's device."""
+    statistics) under ``torch.no_grad()``, on the model's device. The
+    model's own mode is restored on return, as JAX's predict is a pure
+    function of the variables."""
 
     @torch.no_grad()
     def predict(batch):
+        training = model.training
         model.eval()
-        return model(_on(model, batch["rgb"]), _on(model, batch["depth"]))[0][-1]
+        try:
+            return model(_on(model, batch["rgb"]), _on(model, batch["depth"]))[0][-1]
+        finally:
+            model.train(training)
 
     return predict

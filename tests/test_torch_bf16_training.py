@@ -365,7 +365,7 @@ def test_predict_makers_match_jax():
         got, want = evaluate(port, batches), jevaluate(jax_pred, batches)
         for k in want:
             assert got[k] == pytest.approx(want[k], rel=1e-5), k
-    assert not guided.training  # the guided predict ran in eval mode
+    assert guided.training  # the guided predict ran in eval mode (the values above) and restored the mode
 
 
 # ---------------------------------------------------------------------------

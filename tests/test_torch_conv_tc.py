@@ -3,10 +3,11 @@ conv's backward.
 
 On the CPU:
   * form routing: the mixed serving frame sends its 18 bf16 convs with 8 or
-    more output channels to ``conv_tc`` and its 3 transpose convs to
-    ``conv_transpose_tc``; the f32 frame sends none there. The wrappers'
-    kernels are replaced by counting stand-ins that return the plain
-    result, so the routing code of ``ops/convops.py`` is what runs;
+    more output channels to ``conv_tc``, its 3 transpose convs to
+    ``conv_transpose_tc``, its u8 encoder and 4 heads to ``conv_thin`` and
+    its 4 chains to ``conv_chain_tc``; the f32 frame sends none there. The
+    wrappers' kernels are replaced by counting stand-ins that return the
+    plain result, so the routing code of ``ops/convops.py`` is what runs;
   * the bf16 weight contract: on bf16 parts the plain versions round an f32
     weight to bf16 (nearest even) exactly as JAX's mixed schedule casts
     ``kernel.astype(bf16)``: the output equals the one from the pre-rounded
@@ -105,11 +106,14 @@ def counting_kernels():
             p, w, b, stride=s, relu=r, shortcut=sc, out_dtype=od)),
         (convops, "_conv_tc_kernel"): stand_in("conv_tc", lambda p, w, b, s, r, sc: convops.conv3x3_plain(
             p, w, b, stride=s, relu=r, shortcut=sc, out_dtype=BF16)),
+        (convops, "_conv_thin_kernel"): stand_in("conv_thin", lambda p, w, b, r, sc: convops.conv3x3_plain(
+            p, w, b, relu=r, shortcut=sc, out_dtype=BF16)),
         (convops, "_conv_transpose_kernel"): stand_in("conv_transpose", lambda p, w, b, r:
                                                       convops.conv_transpose4x4s2_plain(p, w, b, relu=r)),
         (convops, "_conv_transpose_tc_kernel"): stand_in("conv_transpose_tc", lambda p, w, b, r:
                                                          convops.conv_transpose4x4s2_plain(p, w, b, relu=r)),
         (convops, "_chain_kernel"): stand_in("conv_chain", convops.conv3x3_chain2_plain),
+        (convops, "_chain_tc_kernel"): stand_in("conv_chain_tc", convops.conv3x3_chain2_plain),
     }
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(kernels, "on_card", lambda *t: True))
@@ -119,7 +123,7 @@ def counting_kernels():
 
 
 PER_FRAME = {
-    torch.bfloat16: {"conv_tc": 18, "conv": 5, "conv_transpose_tc": 3, "nconv": 9, "conv_chain": 4},
+    torch.bfloat16: {"conv_tc": 18, "conv_thin": 5, "conv_transpose_tc": 3, "nconv": 9, "conv_chain_tc": 4},
     torch.float32: {"conv": 23, "conv_transpose": 3, "nconv": 9, "conv_chain": 4},
 }
 
@@ -146,22 +150,33 @@ def test_serving_frame_routes_its_convs_to_the_stated_forms(dtype):
         counts[form] = counts.get(form, 0) + 1
     assert counts == PER_FRAME[dtype]
     for form, args in calls:
-        if form in ("conv", "conv_tc"):
+        if form in ("conv", "conv_tc", "conv_thin"):
             parts, weight, out_dtype = args[0], args[1], (args[6] if form == "conv" else BF16)
+            stride = 1 if form == "conv_thin" else args[3]
             tc = ops.on_tensor_cores(parts[0].dtype, out_dtype, weight.shape[0])
-            assert tc == (form == "conv_tc"), (form, parts[0].dtype, out_dtype, tuple(weight.shape))
+            thin = ops.on_thin(parts[0].dtype, out_dtype, weight.shape[0], stride)
+            assert (tc, thin) == (form == "conv_tc", form == "conv_thin"), (form, parts[0].dtype, out_dtype,
+                                                                            tuple(weight.shape))
             assert tc == (parts[0].dtype == BF16 and out_dtype == BF16 and weight.shape[0] >= 8)
+            assert thin == (out_dtype == BF16 and stride == 1 and (parts[0].dtype == torch.uint8 or (
+                parts[0].dtype == BF16 and weight.shape[0] < 8)))
         elif form in ("conv_transpose", "conv_transpose_tc"):
             assert (args[0][0].dtype == BF16) == (form == "conv_transpose_tc")
+        elif form in ("conv_chain", "conv_chain_tc"):
+            assert (args[0].dtype == BF16) == (form == "conv_chain_tc")
     # the 26 K2 and K3 calls of the frame, by signature
-    k2 = [(len(a[0]), sum(p.shape[1] for p in a[0]), a[1].shape[0], a[3]) for f, a in calls
-          if f in ("conv", "conv_tc")]
+    k2 = [(len(a[0]), sum(p.shape[1] for p in a[0]), a[1].shape[0], 1 if f == "conv_thin" else a[3])
+          for f, a in calls if f in ("conv", "conv_tc", "conv_thin")]
     k3 = [(len(a[0]), sum(p.shape[1] for p in a[0]), a[1].shape[1]) for f, a in calls
           if f.startswith("conv_transpose")]
     assert len(k2) == 23 and len(k3) == 3
     assert sorted(k3) == [(2, 33, 32), (2, 65, 64), (2, 65, 64)]
     assert sum(1 for _, _, cout, s in k2 if s == 2) == 3
     assert sum(1 for _, _, cout, _ in k2 if cout == 1) == 4
+    if dtype == BF16:  # the thin calls: the u8 encoder (3 -> 32) and the 4 heads (64, 64, 32, 32 -> 1)
+        thin = sorted((sum(p.shape[1] for p in a[0]), a[1].shape[0], a[0][0].dtype == torch.uint8) for f, a in calls
+                      if f == "conv_thin")
+        assert thin == [(3, 32, True), (32, 1, False), (32, 1, False), (64, 1, False), (64, 1, False)]
 
 
 def test_tc_routing_rule():
