@@ -51,7 +51,10 @@ Phases (any failure raises and the script exits non-zero):
      elementwise math and ReLU masks; f32 step 1, depth tensors, loss, BN
      statistics and master weights). (a) every kernel call of one bf16 train
      step against its plain version, at each distinct shape (the bf16 forms
-     of K2's K x K and 4x4/s2 forms, K3's 3x3/s2 form and K6); (b) one bf16
+     of K2's K x K and 4x4/s2 forms on the CUDA cores, and on the tensor
+     cores K3's 3x3/s2 form, ``conv_transpose3x3s2_tc``, and K6,
+     ``wgrad_tc``, which also prints each call's distance, and its plain
+     version's, from a float64 plain run); (b) one bf16
      step, kernel path against plain path, gradients and the new BN running
      statistics also against phase 5's plain float64 path; (c) five steps
      of ``Trainer.fit``: loss finite and falling, within 2% of phase 5's f32
@@ -114,11 +117,13 @@ TRAIN_B, TRAIN_FIT_STEPS, TRAIN_TIMED_STEPS = 4, 5, 20
 # the 27 forward convs with 8 or more output channels, the 3 transpose convs
 # and an evaluation's 4 chains on the tensor cores, the 4 depth heads on the
 # thin form.
+# The bf16 step's 3x3/s2 input gradients and weight gradients run on the
+# tensor cores.
 PER_GUIDED_STEP = {
     "f32": {"nconv": 9, "conv": 31, "conv_transpose": 3, "conv_kxk": 23,
             "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34},
     "bf16": {"nconv": 9, "conv_tc": 27, "conv_thin": 4, "conv_transpose_tc": 3, "conv_kxk": 23,
-             "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34},
+             "conv_transpose3x3s2_tc": 3, "conv4x4s2": 3, "wgrad_tc": 34},
 }
 PER_GUIDED_EVAL = {
     "f32": {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4},
@@ -146,15 +151,20 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "conv_kxk": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "filtergrad": ("nconv_tpu_torch/csrc/filtergrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
     "conv_transpose3x3s2": ("nconv_tpu_torch/csrc/convt.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "conv_transpose3x3s2_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv4x4s2": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "wgrad": ("nconv_tpu_torch/csrc/wgrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
+    "wgrad_tc": ("nconv_tpu_torch/csrc/wgrad_tc.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
 }
 # timed beside each bf16 chain: two cuDNN bf16 convs, two conv_tc launches
 YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms")
 TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
-GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per guided train step
-# their bf16 forms, per bf16 guided train step, as entries of their own
-BF16_KERNELS = ("conv_kxk", "conv4x4s2", "conv_transpose3x3s2", "wgrad")
+GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per f32 guided train step
+# per bf16 guided train step: the bf16 forms of K2's K x K and 4x4/s2 forms
+# on the CUDA cores, as entries of their own ("_bf16"), and the tensor-core
+# backward forms, which only the bf16 step runs
+BF16_KERNELS = ("conv_kxk", "conv4x4s2")
+BF16_STEP_KERNELS = ("conv_transpose3x3s2_tc", "wgrad_tc")
 
 
 def log(*a):
@@ -211,6 +221,7 @@ class Recorder:
             "tt": convops._conv_transpose_tc_kernel, "ch": convops._chain_kernel, "cc": convops._chain_tc_kernel,
             "kx": convops._conv_kxk_kernel, "fg": convops._filtergrad_kernel,
             "t3": convops._conv_transpose3x3s2_kernel, "wg": convops._wgrad_kernel,
+            "t3c": convops._conv_transpose3x3s2_tc_kernel, "wgc": convops._wgrad_tc_kernel,
         }
 
         def nc(d, c, w, b, padding, up2, crop, pool_out, eps):
@@ -262,6 +273,14 @@ class Recorder:
             self.note(("wgrad", tuple(map(_sig, xs)), tuple(map(_sig, gs)), ksize, stride, padding))
             return real["wg"](xs, gs, ksize, stride, padding)
 
+        def t3c(x, w):
+            self.note(("conv_transpose3x3s2_tc", _sig(x), _sig(w)))
+            return real["t3c"](x, w)
+
+        def wgc(xs, gs, ksize, stride, padding):
+            self.note(("wgrad_tc", tuple(map(_sig, xs)), tuple(map(_sig, gs)), ksize, stride, padding))
+            return real["wgc"](xs, gs, ksize, stride, padding)
+
         with mock.patch.object(nconv, "_nconv2d_kernel", nc), \
                 mock.patch.object(convops, "_conv3x3_kernel", cv), \
                 mock.patch.object(convops, "_conv_tc_kernel", tc), \
@@ -273,7 +292,9 @@ class Recorder:
                 mock.patch.object(convops, "_conv_kxk_kernel", kx), \
                 mock.patch.object(convops, "_filtergrad_kernel", fg), \
                 mock.patch.object(convops, "_conv_transpose3x3s2_kernel", t3), \
-                mock.patch.object(convops, "_wgrad_kernel", wg):
+                mock.patch.object(convops, "_wgrad_kernel", wg), \
+                mock.patch.object(convops, "_conv_transpose3x3s2_tc_kernel", t3c), \
+                mock.patch.object(convops, "_wgrad_tc_kernel", wgc):
             yield
 
 
@@ -322,7 +343,7 @@ def check_call(key, g):
     from nconv_tpu_torch.ops import convops, nconv
 
     kind = key[0]
-    library, yardsticks = None, {}
+    library, yardsticks, ref64 = None, {}, None
     if kind == "nconv":
         _, dsigs, up2, wsig, padding, crop, pool_out, eps = key
         d = [_rand(s, g, positive=True) * 10 for s in dsigs]
@@ -432,22 +453,27 @@ def check_call(key, g):
         out_dt = in_dt = xsig[1]
         macs_per_out = cin * k * k
         inputs = [x, w]
-    elif kind == "conv_transpose3x3s2":
+    elif kind in ("conv_transpose3x3s2", "conv_transpose3x3s2_tc"):
         _, xsig, wsig = key
         x = _rand(xsig, g)
         cin = wsig[0][0]
         w = _rand(wsig, g, scale=(9 * cin) ** -0.5)
-        kern = lambda: convops._conv_transpose3x3s2_kernel(x, w)
+        wrapper = convops._conv_transpose3x3s2_tc_kernel if kind.endswith("_tc") else convops._conv_transpose3x3s2_kernel
+        kern = lambda: wrapper(x, w)
         plain = lambda: convops.conv3x3s2_input_grad_plain(x, w)
         library = lambda: F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1)
         out_dt = in_dt = xsig[1]
         macs_per_out = cin * 9 / 4  # each input pixel's 9 taps feed a 2x2 output quad
         inputs = [x, w]
-    elif kind == "wgrad":
+    elif kind in ("wgrad", "wgrad_tc"):
         _, xsigs, gsigs, k, stride, padding = key
         xs, gs = [_rand(s, g) for s in xsigs], [_rand(s, g) for s in gsigs]
-        kern = lambda: convops._wgrad_kernel(xs, gs, k, stride, padding)
+        wrapper = convops._wgrad_tc_kernel if kind == "wgrad_tc" else convops._wgrad_kernel
+        kern = lambda: wrapper(xs, gs, k, stride, padding)
         plain = lambda: convops.conv2d_weight_grad_plain(xs, gs, k, padding, stride=stride)
+        # the float64 plain run (kernels.widen keeps f64): each path's distance from it
+        ref64 = lambda: convops.conv2d_weight_grad_plain([t.double() for t in xs], [t.double() for t in gs], k,
+                                                         padding, stride=stride)
         xl, gl = torch.cat(xs, 1), torch.cat(gs, 1)
         w_shape = (gl.shape[1], xl.shape[1], k, k)
         library = lambda: torch.nn.grad.conv2d_weight(xl, w_shape, gl, stride=stride, padding=padding)
@@ -515,13 +541,19 @@ def check_call(key, g):
     nbytes = _nbytes(*inputs, *k_out)
     t_ops = flops / PEAK_OPS[in_dt] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    if ref64:
+        r64 = ref64()
+        yardsticks_f64 = dict(f64_err=rel_rmse(k_out[0], r64), plain_f64_err=rel_rmse(p_out[0], r64))
+        del r64
+    else:
+        yardsticks_f64 = {}
     return dict(
         kind=kind, err=err, abs_err=abs_err, bar=bar, out_dtype=out_dt, in_dtype=in_dt,
         shape=[list(t.shape) for t in k_out[:1]],
         ms=time_ms(kern), plain_ms=time_ms(plain),
         library_ms=time_ms(library) if library else None,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
-        **{k: time_ms(f) for k, f in yardsticks.items()},
+        **{k: time_ms(f) for k, f in yardsticks.items()}, **yardsticks_f64,
     )
 
 
@@ -656,7 +688,8 @@ def check_all(calls, g, label):
             f"rel_rmse {res['err']:.2e} (bar {res['bar']:.0e}) max_abs {res['abs_err']:.2e} "
             f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
             f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
-            f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+            f"bound {res['bound_ms']:.4f} ({res['bound_by']})"
+            + (f" vs f64 {res['f64_err']:.2e} (plain vs f64 {res['plain_f64_err']:.2e})" if "f64_err" in res else ""))
         if not ok:
             failures.append((key, res["err"]))
     if failures:
@@ -919,7 +952,8 @@ def guided_phase(g, dtype, f32=None):
         log(f"    {label} step p50 / p90 {times['kernel']['p50_ms']:.3f} / {times['kernel']['p90_ms']:.3f} ms "
             f"beside the f32 step's {f32['step_ms']['kernel']['p50_ms']:.3f} / "
             f"{f32['step_ms']['kernel']['p90_ms']:.3f} ms (this run)")
-    step_calls = {k: c for k, c in r.calls.items() if k[0] in (BF16_KERNELS if bf16 else GUIDED_KERNELS)}
+    step_calls = {k: c for k, c in r.calls.items()
+                  if k[0] in (BF16_KERNELS + BF16_STEP_KERNELS if bf16 else GUIDED_KERNELS)}
     summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=checks, stats=stats_err,
                    stats_vs_f64=stats_vs_64, fit_losses=losses, fit_val_losses=fit.history["val_loss"],
                    fit_counts=fit_counts, step_ms=times, kernel_sums_per_step=sums, metrics=metrics)
@@ -1114,7 +1148,8 @@ def main() -> int:
     # -- report: one entry per kernel form; sums per two-stream frame over
     # the mixed main path for the serving kernels, per step-1 train step for
     # K2's K x K form and K5, per guided train step for the guided backward
-    # forms, per bf16 guided train step for their bf16 forms (launches: the
+    # forms, per bf16 guided train step for the bf16 forms of K2's K x K
+    # and 4x4/s2 forms and for the tensor-core backward forms (launches: the
     # serving run's, and each fit's)
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1134,6 +1169,8 @@ def main() -> int:
             per, res, launches = train_calls, train_results, train_counts[kname]
         elif kname in GUIDED_KERNELS:
             per, res, launches = guided_calls, guided_results, guided_counts[kname]
+        elif kname in BF16_STEP_KERNELS:
+            per, res, launches = bf16_calls, bf16_results, bf16_counts[kname]
         else:  # a serving form: from the mixed frame, or the f32 one if the mixed runs none
             sched = "mixed" if PER_FRAME["mixed"].get(kname) else "f32"
             per, res, launches = rec[sched], results, engine_counts[sched][kname]

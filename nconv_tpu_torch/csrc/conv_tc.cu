@@ -1,12 +1,15 @@
 // K2 and K3 in bf16 on the tensor cores: the 3x3 pad-1 conv (stride 1 or 2,
 // bias, ReLU, optional fused 1x1 residual shortcut, input as a list of
-// parts) and the 4x4/s2/p1 transpose conv (bias, ReLU, parts), bf16 in and
-// out with f32 accumulation, as one implicit-GEMM kernel template
-// (nct_conv_tc).
+// parts), the 4x4/s2/p1 transpose conv (bias, ReLU, parts) and the 3x3/s2/p1
+// transpose conv with output_padding 1 (the input cotangent of a 3x3
+// stride-2 conv, no bias), bf16 in and out with f32 accumulation, as one
+// implicit-GEMM kernel template (nct_conv_tc).
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel (:128) in its bf16 stride-1,
 // residual_channels, multi-part, stride-2 and d2s_channels forms (the mixed
-// schedule's feature convs; f32 stays on the CUDA-core kernels of conv.cu
+// schedule's feature convs, and the d2s_channels form on the stride-2
+// cotangent that pallas_s2._s2_res_bwd (:123-136) runs for the mixed
+// schedule's backward; f32 stays on the CUDA-core kernels of conv.cu
 // and convt.cu, the uint8 frame and the 1-channel heads run on conv_thin.cu,
 // and the bf16 conv chain on conv_chain_tc.cu, which shares tc.cuh).
 //
@@ -36,6 +39,17 @@
 //    parity (py, px) takes 2x2 of the taps (dy in {-1, 0} for py = 0, {0, 1}
 //    for py = 1, the same for x), each warp's columns belong to one parity
 //    and run only its 4 taps, and the epilogue stores depth-to-space.
+//  * The 3x3/s2 transpose conv (mode T3) is the same over a 2x2 footprint:
+//    output (2i + py, 2j + px) reads input (i + ay, j + ax) at tap
+//    (py + 1 - 2 ay, px + 1 - 2 ax), so parity (0, 0) takes 1 tap, (0, 1)
+//    and (1, 0) take 2 and (1, 1) takes 4, the nine taps once each. All nine
+//    stay resident, one slot a tap: 157 KB at 128 -> 64 channels; with the
+//    4 x 16 tile's input and depth-to-space output stages (one buffer, 34
+//    KB) 191 KB, one block a SM. The warps of parity (1, 1) run 4 taps
+//    while those of (0, 0) run 1, and the block waits on the longest; on
+//    the guided net's cotangents that costs nothing measurable (pairing the
+//    parities 4 + 1 and 2 + 2 on each warp scheduler gained nothing on the
+//    H100): the loads and the epilogue, not the MMAs, set the time.
 //  * Epilogue: bias in f32, ReLU, the shortcut columns added, one rounding to
 //    bf16, staged in shared memory so the NCHW stores are 16-byte vectors.
 #include "tc.cuh"
@@ -46,7 +60,14 @@ namespace tc {
 constexpr int TW = 16;       // tile width in output pixels: one m16 MMA tile per tile row
 constexpr int THREADS = 256;  // at most, per block
 
-enum Mode : int { S1 = 0, S2 = 1, T = 2 };  // conv stride 1, conv stride 2, transpose conv
+// conv stride 1, conv stride 2, 4x4/s2 transpose conv, 3x3/s2 transpose conv
+enum Mode : int { S1 = 0, S2 = 1, T = 2, T3 = 3 };
+
+// the transpose convs tile their input grid and store depth-to-space
+__host__ __device__ constexpr bool transposed(int mode) { return mode == T || mode == T3; }
+__host__ __device__ constexpr int slots(int mode, bool res) {
+  return mode == T ? 16 : mode == T3 ? 9 : (res ? 10 : 9);
+}
 
 struct Args {
   Part parts[MAX_PARTS];
@@ -75,32 +96,9 @@ struct Geo {
   static constexpr int G = (IW + 14) / 8;
   // output stage: one row of TH x TW (conv) or 2TH x 2TW (transpose conv)
   // pixels per channel, padded so the fragment stores are conflict-free
-  static constexpr int OH = MODE == T ? 2 * TH : TH, OW = MODE == T ? 2 * TW : TW;
+  static constexpr int OH = transposed(MODE) ? 2 * TH : TH, OW = transposed(MODE) ? 2 * TW : TW;
   static constexpr int OS = OH * OW + 8;
 };
-
-// 8 pixels from x of an image row of part q (row: its first pixel), as
-// raw bf16 bits, zero outside [0, W).
-__device__ __forceinline__ uint4 row8(const Part& q, int vec, const unsigned short* row, int x, int W) {
-  if (vec && x >= 0 && x + 8 <= W) return *reinterpret_cast<const uint4*>(row + x);
-  uint32_t e[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int xj = x + j;
-    e[j] = (xj >= 0 && xj < W) ? row[xj * q.sw] : 0u;
-  }
-  return make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16), e[4] | (e[5] << 16), e[6] | (e[7] << 16));
-}
-
-// The part holding logical channel c, and c's index in it.
-__device__ __forceinline__ int part_of(const Args& a, int& c) {
-  int p = 0;
-  while (p < a.nparts - 1 && c >= a.parts[p].c) {
-    c -= a.parts[p].c;
-    ++p;
-  }
-  return p;
-}
 
 // The input tile is loaded in units of four channels x 8 pixels of one tile
 // row (four 16-byte row pieces, stored as 8 channel-quads of 8 bytes): unit
@@ -109,26 +107,7 @@ __device__ __forceinline__ int part_of(const Args& a, int& c) {
 template <int G>
 __device__ __forceinline__ void load_unit(const Args& a, int b, int iy0, int x0, const Walk& w,
                                           uint4 (&v)[4]) {
-  const int y = iy0 + w.rest / G, x = x0 + 8 * (w.rest % G), c0 = 4 * w.q;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = make_uint4(0, 0, 0, 0);
-  if (c0 >= a.cin || y < 0 || y >= a.H || x + 8 <= 0 || x >= a.W) return;
-  int cc = c0;
-  const int p = part_of(a, cc);
-  const Part& q = a.parts[p];
-  if (c0 + 4 <= a.cin && cc + 4 <= q.c) {  // four channels of one part
-    const unsigned short* row = static_cast<const unsigned short*>(q.ptr) + b * q.sb + cc * q.sc + y * q.sh;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = row8(q, a.vec[p], row + k * q.sc, x, a.W);
-    return;
-  }
-  for (int k = 0; k < 4 && c0 + k < a.cin; ++k) {
-    int ck = c0 + k;
-    const int pk = part_of(a, ck);
-    const Part& qk = a.parts[pk];
-    v[k] = row8(qk, a.vec[pk], static_cast<const unsigned short*>(qk.ptr) + b * qk.sb + ck * qk.sc + y * qk.sh,
-                x, a.W);
-  }
+  load_quad(a.parts, a.vec, a.nparts, a.cin, b, 4 * w.q, iy0 + w.rest / G, a.H, x0 + 8 * (w.rest % G), a.W, v);
 }
 
 // pixel j of the unit's four channels, as one 8-byte channel-quad
@@ -223,7 +202,7 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   using Gm = Geo<MODE, TH>;
   constexpr int S = Gm::S;
   NCT_DYN_SHARED(unsigned char, smem);
-  const int nslots = MODE == T ? 16 : (RES ? 10 : 9);
+  constexpr int nslots = slots(MODE, RES);
   unsigned short* ws = reinterpret_cast<unsigned short*>(smem);
   float* bs = reinterpret_cast<float*>(smem + static_cast<size_t>(nslots) * a.coutp * a.cps * 2);
   unsigned short* u = reinterpret_cast<unsigned short*>(bs + a.coutp);
@@ -253,6 +232,13 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
         put((py * 2 + px) * 4 + ay * 2 + ax, w.q, w.rest, a.w, 16LL * rr + kk);
       }
     }
+  } else if constexpr (MODE == T3) {
+    // (cin, cout, 3, 3): slot = ky * 3 + kx
+    Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
+    for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) put(tap, w.q, w.rest, a.w, 9LL * rr + tap);
+    }
   } else {
     Walk w(tid, nthr, a.cin);  // q: input channel, rest: output channel
     for (int rr = tid; rr < a.cout * a.cin; rr += nthr, w.next()) {
@@ -265,8 +251,8 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   // -- the warp's place: tile rows 2 wm, 2 wm + 1; columns [c0, c0 + 16 NTP)
   // of each of its groups (for T, of parity par's group)
   const int wnc = a.coutp / (16 * NTP);
-  const int par = MODE == T ? wn / wnc : 0;
-  const int c0 = (MODE == T ? wn % wnc : wn) * 16 * NTP;
+  const int par = transposed(MODE) ? wn / wnc : 0;
+  const int c0 = (transposed(MODE) ? wn % wnc : wn) * 16 * NTP;
   const int kchunks = a.kc / 16;
   const uint32_t rowb = a.cps * 2;  // bytes per pixel row of the tile / weight column
   // ldmatrix lanes: A row = pixel q (lane % 16) at channel 8 (lane / 16);
@@ -325,6 +311,15 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
         for (int ax = 0; ax < 2; ++ax)
           mma_tap<NTP>(acc, a_lane + ((ay + py) * Gm::IW + ax + px) * rowb, arow,
                        b_lane + (par * 4 + ay * 2 + ax) * bslot, bpair, kchunks);
+    } else if constexpr (MODE == T3) {
+      // input (i + ay, j + ax) is staged pixel (ay + 1, ax + 1) from the warp's own
+      const int py = par >> 1, px = par & 1;
+#pragma unroll 1
+      for (int ay = 0; ay <= py; ++ay)
+#pragma unroll 1
+        for (int ax = 0; ax <= px; ++ax)
+          mma_tap<NTP>(acc, a_lane + ((ay + 1) * Gm::IW + ax + 1) * rowb, arow,
+                       b_lane + ((py + 1 - 2 * ay) * 3 + px + 1 - 2 * ax) * bslot, bpair, kchunks);
     } else {
 #pragma unroll 1
       for (int tap = 0; tap < 9; ++tap)
@@ -349,7 +344,7 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
             float v = acc[m][n][e] + bs[col];
             if (a.relu) v = fmaxf(v, 0.f);
             if constexpr (RES) v += accs[m][n][e];
-            if constexpr (MODE == T)
+            if constexpr (transposed(MODE))
               st[col * Gm::OS + (2 * r + (par >> 1)) * Gm::OW + 2 * px_ + (par & 1)] = __float2bfloat16(v);
             else
               st[col * Gm::OS + r * Gm::OW + px_] = __float2bfloat16(v);
@@ -358,7 +353,7 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
     __syncthreads();
     {
       constexpr int VPR = Gm::OW / 8;  // 16-byte vectors per stage row
-      const int oyb = MODE == T ? 2 * oy0 : oy0, oxb = MODE == T ? 2 * ox0 : ox0;
+      const int oyb = transposed(MODE) ? 2 * oy0 : oy0, oxb = transposed(MODE) ? 2 * ox0 : ox0;
       for (int i = tid; i < a.cout * Gm::OH * VPR; i += nthr) {
         const int vx = i % VPR, rr = (i / VPR) % Gm::OH, co = i / (VPR * Gm::OH);
         const int oy = oyb + rr, ox = oxb + vx * 8;
@@ -394,10 +389,10 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
 inline size_t smem_bytes(int mode, bool res, int th, int coutp, int cps) {
   const int s = mode == S2 ? 2 : 1;
   const int ih = (th - 1) * s + 3, iw = (TW - 1) * s + 3;
-  const int oh = mode == T ? 2 * th : th, ow = mode == T ? 2 * TW : TW;
+  const int oh = transposed(mode) ? 2 * th : th, ow = transposed(mode) ? 2 * TW : TW;
   const size_t in = static_cast<size_t>(ih) * iw * cps * 2;
   const size_t out = static_cast<size_t>(coutp) * (oh * ow + 8) * 2;
-  const int nslots = mode == T ? 16 : (res ? 10 : 9);
+  const int nslots = slots(mode, res);
   return static_cast<size_t>(nslots) * coutp * cps * 2 + coutp * 4 + (in > out ? in : out);
 }
 
@@ -407,7 +402,7 @@ int launch(Args& a, int wn, cudaStream_t st) {
   void (*k)(const Args) = conv_tc_kernel<MODE, RES, NTP, WM>;
   const int threads = 32 * WM * wn;
   const size_t smem = smem_bytes(MODE, RES, TH, a.coutp, a.cps);
-  const int gy = MODE == T ? a.H : a.ho, gx = MODE == T ? a.W : a.wo;
+  const int gy = transposed(MODE) ? a.H : a.ho, gx = transposed(MODE) ? a.W : a.wo;
   a.tiles_x = (gx + TW - 1) / TW;
   a.tiles_y = (gy + TH - 1) / TH;
   a.tiles = a.B * a.tiles_x * a.tiles_y;
@@ -422,7 +417,7 @@ int launch(Args& a, int wn, cudaStream_t st) {
 // block (a transpose conv has at least 4 column groups, so WM 2).
 template <int MODE, bool RES, int NTP>
 int launch_fit(Args& a, int wn, cudaStream_t st) {
-  if constexpr (MODE != T) {
+  if constexpr (!transposed(MODE)) {
     if (4 * wn * 32 <= THREADS && smem_bytes(MODE, RES, 8, a.coutp, a.cps) <= MAX_SMEM)
       return launch<MODE, RES, NTP, 4>(a, wn, st);
   }
@@ -433,7 +428,7 @@ int launch_fit(Args& a, int wn, cudaStream_t st) {
 
 template <int MODE, bool RES>
 int dispatch_ntp(Args& a, int ntp, cudaStream_t st) {
-  const int wnc = a.coutp / (16 * ntp), wn = MODE == T ? 4 * wnc : wnc;
+  const int wnc = a.coutp / (16 * ntp), wn = transposed(MODE) ? 4 * wnc : wnc;
   switch (ntp) {
     case 1: return launch_fit<MODE, RES, 1>(a, wn, st);
     case 2: return launch_fit<MODE, RES, 2>(a, wn, st);
@@ -449,12 +444,13 @@ int dispatch_ntp(Args& a, int ntp, cudaStream_t st) {
 
 // Plain C entry. parts: n pointers + 6*n metadata (see nct::fill_parts), bf16,
 // all of (B, H, W); mode 0: 3x3 pad-1 conv at stride 1, 1: at stride 2, 2:
-// 4x4/s2/p1 transpose conv. w: f32 (w_dtype 0) or bf16 (1), (cout, cin, 3, 3)
-// for a conv, (cin, cout, 4, 4) for the transpose conv; wsc (cout, cin) of
+// 4x4/s2/p1 transpose conv, 3: 3x3/s2/p1 transpose conv with output_padding
+// 1. w: f32 (w_dtype 0) or bf16 (1), (cout, cin, 3, 3) for a conv, (cin,
+// cout, 4, 4) or (cin, cout, 3, 3) for a transpose conv; wsc (cout, cin) of
 // w's type selects the residual form of a conv, relu(conv + bias) + conv1x1;
 // bias (cout) f32 (bias_dtype 0) or bf16 (1), or null. out: (B, cout, ho, wo)
 // bf16, contiguous. Takes cout up to 128 (64 for the residual form and the
-// transpose conv) where the weights and one input tile fit in shared
+// transpose convs) where the weights and one input tile fit in shared
 // memory; returns cudaErrorInvalidValue for any other call, else
 // cudaGetLastError() after the launch.
 extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_meta, int nparts,
@@ -465,7 +461,7 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   using namespace nct::tc;
   const bool res = wsc != nullptr;
   if (nparts < 1 || nparts > MAX_PARTS || B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1 ||
-      mode < S1 || mode > T || (res && mode == T))
+      mode < S1 || mode > T3 || (res && transposed(mode)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   fill_parts(a.parts, part_ptrs, part_meta, nparts);
@@ -473,15 +469,14 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   for (int i = 0; i < nparts; ++i) {
     const Part& p = a.parts[i];
     total += p.c;
-    a.vec[i] = p.sw == 1 && reinterpret_cast<uintptr_t>(p.ptr) % 16 == 0 && p.sb % 8 == 0 &&
-               p.sc % 8 == 0 && p.sh % 8 == 0;
+    a.vec[i] = vec_rows(p);
     if (p.up2) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (total != cin) return static_cast<int>(cudaErrorInvalidValue);
   a.nparts = nparts;
   a.B = B, a.H = H, a.W = W, a.cin = cin, a.cout = cout;
-  a.ho = mode == T ? 2 * H : mode == S2 ? (H - 1) / 2 + 1 : H;
-  a.wo = mode == T ? 2 * W : mode == S2 ? (W - 1) / 2 + 1 : W;
+  a.ho = transposed(mode) ? 2 * H : mode == S2 ? (H - 1) / 2 + 1 : H;
+  a.wo = transposed(mode) ? 2 * W : mode == S2 ? (W - 1) / 2 + 1 : W;
   a.kc = (cin + 15) / 16 * 16;
   a.cps = a.kc + 8;
   const int gran = cout <= 16 ? 16 : cout <= 64 ? 32 : 64;
@@ -495,14 +490,15 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   // to 32 channels, measured faster than two narrower warps); a transpose
   // conv's parity groups one warp wide
   int ntp = a.coutp / 32 > 1 ? a.coutp / 32 : a.coutp / 16;
-  if (mode == T) ntp = a.coutp / 16 > 4 ? 4 : a.coutp / 16;
-  if (a.coutp > (mode == T || res ? 64 : 128) || (w_dtype != F32 && w_dtype != BF16) ||
+  if (transposed(mode)) ntp = a.coutp / 16 > 4 ? 4 : a.coutp / 16;
+  if (a.coutp > (transposed(mode) || res ? 64 : 128) || (w_dtype != F32 && w_dtype != BF16) ||
       (bias_dtype != F32 && bias_dtype != BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case S1: return res ? dispatch_ntp<S1, true>(a, ntp, st) : dispatch_ntp<S1, false>(a, ntp, st);
     case S2: return res ? dispatch_ntp<S2, true>(a, ntp, st) : dispatch_ntp<S2, false>(a, ntp, st);
-    default: return dispatch_ntp<T, false>(a, ntp, st);
+    case T: return dispatch_ntp<T, false>(a, ntp, st);
+    default: return dispatch_ntp<T3, false>(a, ntp, st);
   }
 }

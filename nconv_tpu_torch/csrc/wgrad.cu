@@ -33,12 +33,8 @@
 // partial sum; a second kernel sums the slices of each output in slice
 // order, so a run is bitwise repeatable for a given shape.
 //
-// Storage type T of g and x: f32, or bf16 in the mixed schedule (the JAX
-// backwards hand _filtergrad_kernel bf16 operands and round its f32 result
-// to bf16; the autograd Function does that rounding here). A bf16 value
-// widens on the load into the same f32 tile, and a product of two bf16
-// values is exact in f32, so a bf16 call equals the f32 form run on the
-// widened inputs bit for bit.
+// f32 g and x only: the mixed schedule's bf16 operands run on the tensor
+// cores (wgrad_tc.cu).
 #include "common.cuh"
 
 namespace nct {
@@ -53,7 +49,7 @@ struct WgArgs {
   float* part;       // (slices, M, N)
 };
 
-template <typename T, int K, int S, int MR>
+template <int K, int S, int MR>
 __global__ void __launch_bounds__(W_THREADS) wgrad_kernel(const WgArgs a) {
   constexpr int MT = 16 * MR, KK = K * K;
   __shared__ float gs[W_PC][MT + 1];
@@ -85,14 +81,14 @@ __global__ void __launch_bounds__(W_THREADS) wgrad_kernel(const WgArgs a) {
     __syncthreads();
     for (int m = grp; m < MT; m += W_THREADS / W_PC)
       gs[lane][m] = (valid && m0 + m < a.M)
-                        ? load_parts<T>(a.g, a.ng, b, m0 + m, i, j, a.ho, a.wo)
+                        ? load_parts<float>(a.g, a.ng, b, m0 + m, i, j, a.ho, a.wo)
                         : 0.f;
     for (int n = grp; n < W_NT; n += W_THREADS / W_PC) {
       const int nn = n0 + n;
       float v = 0.f;
       if (valid && nn < a.N) {
         const int ci = nn / KK, tap = nn % KK;
-        v = load_parts<T>(a.x, a.nx, b, ci, S * i + tap / K - a.pad,
+        v = load_parts<float>(a.x, a.nx, b, ci, S * i + tap / K - a.pad,
                           S * j + tap % K - a.pad, a.H, a.W);
       }
       xs[lane][n] = v;
@@ -155,10 +151,10 @@ static WgPlan wgrad_plan(long long P, int M, int N) {
   return pl;
 }
 
-template <typename T, int K, int S, int MR>
+template <int K, int S, int MR>
 static int launch(const WgArgs& a, int slices, float* out, cudaStream_t st) {
   const dim3 grid((a.N + W_NT - 1) / W_NT, (a.M + 16 * MR - 1) / (16 * MR), slices);
-  void (*k)(const WgArgs) = wgrad_kernel<T, K, S, MR>;
+  void (*k)(const WgArgs) = wgrad_kernel<K, S, MR>;
   NCT_LAUNCH(k, grid, dim3(W_THREADS), 0, st, a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -169,22 +165,21 @@ static int launch(const WgArgs& a, int slices, float* out, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K, int S>
+template <int K, int S>
 static int dispatch_mr(const WgArgs& a, const WgPlan& pl, float* out, cudaStream_t st) {
   switch (pl.mr) {
-    case 4: return launch<T, K, S, 4>(a, pl.slices, out, st);
-    case 2: return launch<T, K, S, 2>(a, pl.slices, out, st);
-    case 1: return launch<T, K, S, 1>(a, pl.slices, out, st);
+    case 4: return launch<K, S, 4>(a, pl.slices, out, st);
+    case 2: return launch<K, S, 2>(a, pl.slices, out, st);
+    case 1: return launch<K, S, 1>(a, pl.slices, out, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
 static int dispatch_form(const WgArgs& a, const WgPlan& pl, int ksize, int stride,
                          float* out, cudaStream_t st) {
-  if (ksize == 3 && stride == 1) return dispatch_mr<T, 3, 1>(a, pl, out, st);
-  if (ksize == 3 && stride == 2) return dispatch_mr<T, 3, 2>(a, pl, out, st);
-  if (ksize == 4 && stride == 2) return dispatch_mr<T, 4, 2>(a, pl, out, st);
+  if (ksize == 3 && stride == 1) return dispatch_mr<3, 1>(a, pl, out, st);
+  if (ksize == 3 && stride == 2) return dispatch_mr<3, 2>(a, pl, out, st);
+  if (ksize == 4 && stride == 2) return dispatch_mr<4, 2>(a, pl, out, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -198,7 +193,7 @@ extern "C" int nct_wgrad_slices(int B, int ho, int wo, int M, int N) {
 
 // Plain C entry. g: ng parts (B, M, ho, wo); x: nx parts (B, cin, H, W)
 // (pointers + 6 metadata values each, see nct::fill_parts), all of storage
-// type dtype (F32 or BF16), any strides; (ksize, stride) in {(3, 1), (3, 2),
+// type dtype, which must be F32 (bf16: nct_wgrad_tc), any strides; (ksize, stride) in {(3, 1), (3, 2),
 // (4, 2)}, pad in [0, ksize), (ho, wo) = ((H, W) + 2 pad - ksize) / stride +
 // 1; out (M, cin, ksize, ksize) f32 contiguous.
 extern "C" int nct_wgrad(const void* const* g_ptrs, const long long* g_meta, int ng,
@@ -220,7 +215,6 @@ extern "C" int nct_wgrad(const void* const* g_ptrs, const long long* g_meta, int
   const WgPlan pl = wgrad_plan(a.P, M, a.N);
   a.per = pl.per, a.part = part;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32) return dispatch_form<float>(a, pl, ksize, stride, out, st);
-  if (dtype == BF16) return dispatch_form<__nv_bfloat16>(a, pl, ksize, stride, out, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == F32) return dispatch_form(a, pl, ksize, stride, out, st);
+  return static_cast<int>(cudaErrorInvalidValue);  // bf16: wgrad_tc.cu
 }

@@ -32,14 +32,17 @@ schedule except K5):
   * :func:`conv2d_weight_grad` — the weight cotangent of step 1's
     stride-1 convs on K5 (``csrc/filtergrad.cu``);
   * :func:`conv3x3s2_input_grad` — the input cotangent of a 3x3 stride-2
-    conv, a 3x3/s2 transposed conv on K3's 3x3/s2 form (``csrc/convt.cu``,
-    ``nct_conv_transpose3x3s2``);
+    conv, a 3x3/s2 transposed conv: f32 on K3's 3x3/s2 form
+    (``csrc/convt.cu``, counter ``conv_transpose3x3s2``), bf16 on the
+    tensor cores (mode 3 of ``csrc/conv_tc.cu``, counter
+    ``conv_transpose3x3s2_tc``);
   * :func:`conv_transpose4x4s2_input_grad` — the input cotangent of the
     4x4/s2 transpose conv, a 4x4 stride-2 conv on K2's K x K form at
     stride 2;
   * :func:`conv2d_wgrad` — the weight cotangent of any of the guided net's
-    convs (3x3 at stride 1 or 2, and the 4x4/s2 transpose conv) on K6
-    (``csrc/wgrad.cu``), its inputs given as parts.
+    convs (3x3 at stride 1 or 2, and the 4x4/s2 transpose conv), its inputs
+    given as parts: f32 on K6 (``csrc/wgrad.cu``, counter ``wgrad``), bf16
+    on the tensor cores (``csrc/wgrad_tc.cu``, counter ``wgrad_tc``).
 
 All arithmetic is f32: inputs are widened on load and the output is
 rounded once to its storage type. Bias is taken at the value it holds;
@@ -487,6 +490,8 @@ def conv3x3s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> torch.Tenso
     output_padding 1. In ``cot``'s dtype."""
     if not kernels.on_card(cot, weight):
         return conv3x3s2_input_grad_plain(cot, weight)
+    if cot.dtype == torch.bfloat16:
+        return _conv_transpose3x3s2_tc_kernel(cot, weight)
     return _conv_transpose3x3s2_kernel(cot, weight)
 
 
@@ -500,14 +505,31 @@ def conv3x3s2_input_grad_plain(cot, weight):
 
 def _conv_transpose3x3s2_kernel(cot, weight):
     kernels.no_graph("conv_transpose3x3s2", cot, weight)
-    if _check_t3(cot, weight) not in _FLOAT_OUT:
-        raise TypeError(f"K3 3x3/s2 form takes float32 or bfloat16, got {cot.dtype}")
+    if _check_t3(cot, weight) != torch.float32:
+        raise TypeError(f"K3's CUDA-core 3x3/s2 form takes float32 (bf16: conv_transpose3x3s2_tc), "
+                        f"got {cot.dtype}")
     b, cin, h, w = cot.shape
     cout = weight.shape[1]
     out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device, dtype=cot.dtype)
     ptrs, meta = kernels.part_args([cot], [False])
     kernels.launch("conv_transpose3x3s2", "nct_conv_transpose3x3s2", out, ptrs, meta,
                    kernels.DTYPE_CODE[cot.dtype], b, h, w, cin, cout, _f32(weight), out)
+    return out
+
+
+def _conv_transpose3x3s2_tc_kernel(cot, weight):
+    kernels.no_graph("conv_transpose3x3s2_tc", cot, weight)
+    if _check_t3(cot, weight) != torch.bfloat16:
+        raise TypeError(f"the tensor-core 3x3/s2 form takes bfloat16, got {cot.dtype}")
+    b, cin, h, w = cot.shape
+    cout = weight.shape[1]
+    if cout > 64:
+        raise ValueError(f"the tensor-core 3x3/s2 form takes at most 64 output channels, got {cout}")
+    wt = _stored(weight)
+    out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device, dtype=torch.bfloat16)
+    ptrs, meta = kernels.part_args([cot], [False])
+    kernels.launch("conv_transpose3x3s2_tc", "nct_conv_tc", out, ptrs, meta, 1, b, h, w, cin, cout, 3, wt,
+                   _weight_code(wt, "conv_transpose3x3s2_tc"), None, None, 0, out, 0)
     return out
 
 
@@ -595,27 +617,50 @@ def conv2d_wgrad(
     _weight_grad_pads(x_parts[0], g_parts[0], ksize, padding, padding, stride)
     if not kernels.on_card(*x_parts, *g_parts):
         return conv2d_weight_grad_plain(x_parts, g_parts, ksize, padding, stride=stride)
+    if x_parts[0].dtype == torch.bfloat16:
+        return _wgrad_tc_kernel(x_parts, g_parts, ksize, stride, padding)
     return _wgrad_kernel(x_parts, g_parts, ksize, stride, padding)
 
 
-def _wgrad_kernel(x_parts, g_parts, ksize, stride, padding):
-    kernels.no_graph("wgrad", *x_parts, *g_parts)
+def _check_wgrad(x_parts, g_parts, ksize, stride, padding, dtype, form):
+    """Raise where K6's ``form`` does not take the call; returns (b, h, w,
+    ho, wo, cin, m)."""
     b, h, w = _check_same_geometry(x_parts)
     ho, wo = g_parts[0].shape[2:]
     if ((ksize, stride) not in ((3, 1), (3, 2), (4, 2)) or max(len(x_parts), len(g_parts)) > 4
             or not 0 <= padding < ksize
             or (ho, wo) != ((h + 2 * padding - ksize) // stride + 1, (w + 2 * padding - ksize) // stride + 1)):
-        raise ValueError(f"K6 takes (k, stride) in (3, 1), (3, 2), (4, 2), pad in [0, k), at most 4 parts "
+        raise ValueError(f"{form} takes (k, stride) in (3, 1), (3, 2), (4, 2), pad in [0, k), at most 4 parts "
                          f"a side and the conv's own output size; got k {ksize}, stride {stride}, pad "
                          f"{padding}, x {tuple(x_parts[0].shape)}, g {tuple(g_parts[0].shape)}")
-    if _grad_dtype(*x_parts, *g_parts) not in _FLOAT_OUT:
-        raise TypeError("K6 takes float32 or bfloat16 parts")
-    cin, m = sum(p.shape[1] for p in x_parts), sum(p.shape[1] for p in g_parts)
+    if _grad_dtype(*x_parts, *g_parts) != dtype:
+        raise TypeError(f"{form} takes {dtype} parts, got {x_parts[0].dtype}")
+    return b, h, w, ho, wo, sum(p.shape[1] for p in x_parts), sum(p.shape[1] for p in g_parts)
+
+
+def _wgrad_kernel(x_parts, g_parts, ksize, stride, padding):
+    kernels.no_graph("wgrad", *x_parts, *g_parts)
+    b, h, w, ho, wo, cin, m = _check_wgrad(x_parts, g_parts, ksize, stride, padding, torch.float32,
+                                           "K6's CUDA-core form (bf16: wgrad_tc)")
     part = torch.empty((kernels.lib().nct_wgrad_slices(b, ho, wo, m, cin * ksize * ksize), m, cin * ksize * ksize),
                        device=x_parts[0].device)
     out = torch.empty((m, cin, ksize, ksize), device=x_parts[0].device)
     gptrs, gmeta = kernels.part_args(g_parts, [False] * len(g_parts))
     xptrs, xmeta = kernels.part_args(x_parts, [False] * len(x_parts))
     kernels.launch("wgrad", "nct_wgrad", out, gptrs, gmeta, len(g_parts), xptrs, xmeta, len(x_parts),
-                   kernels.DTYPE_CODE[x_parts[0].dtype], b, m, cin, h, w, ho, wo, ksize, stride, padding, part, out)
+                   kernels.DTYPE_CODE[torch.float32], b, m, cin, h, w, ho, wo, ksize, stride, padding, part, out)
+    return out
+
+
+def _wgrad_tc_kernel(x_parts, g_parts, ksize, stride, padding):
+    kernels.no_graph("wgrad_tc", *x_parts, *g_parts)
+    b, h, w, ho, wo, cin, m = _check_wgrad(x_parts, g_parts, ksize, stride, padding, torch.bfloat16,
+                                           "K6's tensor-core form")
+    part = torch.empty((kernels.lib().nct_wgrad_tc_slices(b, ho, wo, m, cin, ksize), m, cin * ksize * ksize),
+                       device=x_parts[0].device)
+    out = torch.empty((m, cin, ksize, ksize), device=x_parts[0].device)
+    gptrs, gmeta = kernels.part_args(g_parts, [False] * len(g_parts))
+    xptrs, xmeta = kernels.part_args(x_parts, [False] * len(x_parts))
+    kernels.launch("wgrad_tc", "nct_wgrad_tc", out, gptrs, gmeta, len(g_parts), xptrs, xmeta, len(x_parts),
+                   b, m, cin, h, w, ho, wo, ksize, stride, padding, part, out)
     return out

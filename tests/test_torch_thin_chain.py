@@ -252,6 +252,9 @@ def test_thin_form_refuses_what_it_cannot_take():
 # The device guard (every wrapper) and make_guided_predict's mode
 # ---------------------------------------------------------------------------
 
+_SIZES = ("nct_filtergrad_tiles", "nct_wgrad_slices", "nct_wgrad_tc_slices")  # plan queries, not launches
+
+
 class _StubLib:
     """Every entry returns 0 and notes the device the guard made current."""
 
@@ -261,7 +264,7 @@ class _StubLib:
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, self.current[0]))
-            return 1 if name in ("nct_filtergrad_tiles", "nct_wgrad_slices") else 0
+            return 1 if name in _SIZES else 0
         return entry
 
 
@@ -286,7 +289,9 @@ def _every_wrapper(r):
         ("conv4x4s2", lambda: convops._conv_kxk_kernel(x, r(8, 8, 4, 4), 1, 2)),
         ("filtergrad", lambda: convops._filtergrad_kernel(x, x, 3, 1, 1)),
         ("conv_transpose3x3s2", lambda: convops._conv_transpose3x3s2_kernel(x, w8)),
+        ("conv_transpose3x3s2_tc", lambda: convops._conv_transpose3x3s2_tc_kernel(xb, w8.to(bf))),
         ("wgrad", lambda: convops._wgrad_kernel([x], [x], 3, 1, 1)),
+        ("wgrad_tc", lambda: convops._wgrad_tc_kernel([xb], [xb], 3, 1, 1)),
     ]
 
 
@@ -313,7 +318,7 @@ def test_every_wrapper_launches_inside_its_device_guard():
             kernels.reset_launch_counts()
             stub.calls.clear()
             out = call()
-            launched = [(n, d) for n, d in stub.calls if n not in ("nct_filtergrad_tiles", "nct_wgrad_slices")]
+            launched = [(n, d) for n, d in stub.calls if n not in _SIZES]
             assert len(launched) == 1 and launched[0][1] == torch.device("cpu"), (counter, stub.calls)
             assert current[0] is None  # the guard was left
             assert kernels.launch_counts() == {k: int(k == counter) for k in kernels.LAUNCHES}, counter
