@@ -50,11 +50,12 @@ Phases (any failure raises and the script exits non-zero):
      and config with ``dtype=torch.bfloat16`` (bf16 feature convs, BN
      elementwise math and ReLU masks; f32 step 1, depth tensors, loss, BN
      statistics and master weights). (a) every kernel call of one bf16 train
-     step against its plain version, at each distinct shape (the bf16 forms
-     of K2's K x K and 4x4/s2 forms on the CUDA cores, and on the tensor
-     cores K3's 3x3/s2 form, ``conv_transpose3x3s2_tc``, and K6,
-     ``wgrad_tc``, which also prints each call's distance, and its plain
-     version's, from a float64 plain run); (b) one bf16
+     step against its plain version, at each distinct shape (the backward's
+     tensor-core forms: the stride-1 input gradient, ``conv_input_grad_tc``,
+     the 4x4/s2 one, ``conv4x4s2_tc``, K3's 3x3/s2 form,
+     ``conv_transpose3x3s2_tc``, and K6, ``wgrad_tc``; each but the 3x3/s2
+     form also prints each call's distance, and its plain version's, from a
+     float64 plain run); (b) one bf16
      step, kernel path against plain path, gradients and the new BN running
      statistics also against phase 5's plain float64 path; (c) five steps
      of ``Trainer.fit``: loss finite and falling, within 2% of phase 5's f32
@@ -117,13 +118,13 @@ TRAIN_B, TRAIN_FIT_STEPS, TRAIN_TIMED_STEPS = 4, 5, 20
 # the 27 forward convs with 8 or more output channels, the 3 transpose convs
 # and an evaluation's 4 chains on the tensor cores, the 4 depth heads on the
 # thin form.
-# The bf16 step's 3x3/s2 input gradients and weight gradients run on the
-# tensor cores.
+# The bf16 step's input gradients and weight gradients run on the tensor
+# cores.
 PER_GUIDED_STEP = {
     "f32": {"nconv": 9, "conv": 31, "conv_transpose": 3, "conv_kxk": 23,
             "conv_transpose3x3s2": 3, "conv4x4s2": 3, "wgrad": 34},
-    "bf16": {"nconv": 9, "conv_tc": 27, "conv_thin": 4, "conv_transpose_tc": 3, "conv_kxk": 23,
-             "conv_transpose3x3s2_tc": 3, "conv4x4s2": 3, "wgrad_tc": 34},
+    "bf16": {"nconv": 9, "conv_tc": 27, "conv_thin": 4, "conv_transpose_tc": 3, "conv_input_grad_tc": 23,
+             "conv_transpose3x3s2_tc": 3, "conv4x4s2_tc": 3, "wgrad_tc": 34},
 }
 PER_GUIDED_EVAL = {
     "f32": {"nconv": 9, "conv": 23, "conv_transpose": 3, "conv_chain": 4},
@@ -149,10 +150,12 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "conv_chain": ("nconv_tpu_torch/csrc/chain.cu", "nconv_tpu/ops/pallas_chain.py:169"),
     "conv_chain_tc": ("nconv_tpu_torch/csrc/conv_chain_tc.cu", "nconv_tpu/ops/pallas_chain.py:169"),
     "conv_kxk": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "conv_input_grad_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "filtergrad": ("nconv_tpu_torch/csrc/filtergrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
     "conv_transpose3x3s2": ("nconv_tpu_torch/csrc/convt.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv_transpose3x3s2_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "conv4x4s2": ("nconv_tpu_torch/csrc/conv.cu", "nconv_tpu/ops/pallas_conv.py:128"),
+    "conv4x4s2_tc": ("nconv_tpu_torch/csrc/conv_tc.cu", "nconv_tpu/ops/pallas_conv.py:128"),
     "wgrad": ("nconv_tpu_torch/csrc/wgrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
     "wgrad_tc": ("nconv_tpu_torch/csrc/wgrad_tc.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
 }
@@ -160,11 +163,9 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms")
 TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
 GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per f32 guided train step
-# per bf16 guided train step: the bf16 forms of K2's K x K and 4x4/s2 forms
-# on the CUDA cores, as entries of their own ("_bf16"), and the tensor-core
-# backward forms, which only the bf16 step runs
-BF16_KERNELS = ("conv_kxk", "conv4x4s2")
-BF16_STEP_KERNELS = ("conv_transpose3x3s2_tc", "wgrad_tc")
+# per bf16 guided train step: the tensor-core backward forms, which only the
+# bf16 step runs
+BF16_STEP_KERNELS = ("conv_input_grad_tc", "conv4x4s2_tc", "conv_transpose3x3s2_tc", "wgrad_tc")
 
 
 def log(*a):
@@ -222,6 +223,7 @@ class Recorder:
             "kx": convops._conv_kxk_kernel, "fg": convops._filtergrad_kernel,
             "t3": convops._conv_transpose3x3s2_kernel, "wg": convops._wgrad_kernel,
             "t3c": convops._conv_transpose3x3s2_tc_kernel, "wgc": convops._wgrad_tc_kernel,
+            "ig": convops._conv_input_grad_tc_kernel, "k4": convops._conv4x4s2_tc_kernel,
         }
 
         def nc(d, c, w, b, padding, up2, crop, pool_out, eps):
@@ -281,6 +283,14 @@ class Recorder:
             self.note(("wgrad_tc", tuple(map(_sig, xs)), tuple(map(_sig, gs)), ksize, stride, padding))
             return real["wgc"](xs, gs, ksize, stride, padding)
 
+        def ig(cot, w, padding):
+            self.note(("conv_input_grad_tc", _sig(cot), _sig(w), padding))
+            return real["ig"](cot, w, padding)
+
+        def k4(cot, w):
+            self.note(("conv4x4s2_tc", _sig(cot), _sig(w)))
+            return real["k4"](cot, w)
+
         with mock.patch.object(nconv, "_nconv2d_kernel", nc), \
                 mock.patch.object(convops, "_conv3x3_kernel", cv), \
                 mock.patch.object(convops, "_conv_tc_kernel", tc), \
@@ -294,7 +304,9 @@ class Recorder:
                 mock.patch.object(convops, "_conv_transpose3x3s2_kernel", t3), \
                 mock.patch.object(convops, "_wgrad_kernel", wg), \
                 mock.patch.object(convops, "_conv_transpose3x3s2_tc_kernel", t3c), \
-                mock.patch.object(convops, "_wgrad_tc_kernel", wgc):
+                mock.patch.object(convops, "_wgrad_tc_kernel", wgc), \
+                mock.patch.object(convops, "_conv_input_grad_tc_kernel", ig), \
+                mock.patch.object(convops, "_conv4x4s2_tc_kernel", k4):
             yield
 
 
@@ -452,6 +464,31 @@ def check_call(key, g):
             library = lambda: F.conv2d(x, w, stride=stride, padding=padding)
         out_dt = in_dt = xsig[1]
         macs_per_out = cin * k * k
+        inputs = [x, w]
+    elif kind == "conv_input_grad_tc":
+        _, xsig, wsig, padding = key
+        x = _rand(xsig, g)
+        cout, cin = wsig[0][:2]  # the forward conv's weight: x has its cout channels
+        w = _rand(wsig, g, scale=(9 * cin) ** -0.5)
+        kern = lambda: convops._conv_input_grad_tc_kernel(x, w, padding)
+        plain = lambda: convops.conv2d_input_grad_plain(x, w, padding)
+        ref64 = lambda: convops.conv2d_input_grad_plain(x.double(), w.double(), padding)
+        out_shape = (x.shape[0], cin, x.shape[2] + 2 - 2 * padding, x.shape[3] + 2 - 2 * padding)
+        library = lambda: torch.nn.grad.conv2d_input(out_shape, w, x, padding=padding)
+        out_dt = in_dt = xsig[1]
+        macs_per_out = cout * 9
+        inputs = [x, w]
+    elif kind == "conv4x4s2_tc":
+        _, xsig, wsig = key
+        x = _rand(xsig, g)
+        cin_t, cout_t = wsig[0][:2]  # the transpose conv's weight, read as OIHW
+        w = _rand(wsig, g, scale=(16 * cout_t) ** -0.5)
+        kern = lambda: convops._conv4x4s2_tc_kernel(x, w)
+        plain = lambda: convops.conv_transpose4x4s2_input_grad_plain(x, w)
+        ref64 = lambda: convops.conv_transpose4x4s2_input_grad_plain(x.double(), w.double())
+        library = lambda: F.conv2d(x, w, stride=2, padding=1)
+        out_dt = in_dt = xsig[1]
+        macs_per_out = cout_t * 16
         inputs = [x, w]
     elif kind in ("conv_transpose3x3s2", "conv_transpose3x3s2_tc"):
         _, xsig, wsig = key
@@ -689,7 +726,7 @@ def check_all(calls, g, label):
             f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
             f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
             f"bound {res['bound_ms']:.4f} ({res['bound_by']})"
-            + (f" vs f64 {res['f64_err']:.2e} (plain vs f64 {res['plain_f64_err']:.2e})" if "f64_err" in res else ""))
+            + (f" vs f64 {res['f64_err']:.4e} (plain vs f64 {res['plain_f64_err']:.4e})" if "f64_err" in res else ""))
         if not ok:
             failures.append((key, res["err"]))
     if failures:
@@ -952,8 +989,7 @@ def guided_phase(g, dtype, f32=None):
         log(f"    {label} step p50 / p90 {times['kernel']['p50_ms']:.3f} / {times['kernel']['p90_ms']:.3f} ms "
             f"beside the f32 step's {f32['step_ms']['kernel']['p50_ms']:.3f} / "
             f"{f32['step_ms']['kernel']['p90_ms']:.3f} ms (this run)")
-    step_calls = {k: c for k, c in r.calls.items()
-                  if k[0] in (BF16_KERNELS + BF16_STEP_KERNELS if bf16 else GUIDED_KERNELS)}
+    step_calls = {k: c for k, c in r.calls.items() if k[0] in (BF16_STEP_KERNELS if bf16 else GUIDED_KERNELS)}
     summary = dict(loss=loss_k, loss_rel_err=loss_err, loss_f64=loss_64, grads=checks, stats=stats_err,
                    stats_vs_f64=stats_vs_64, fit_losses=losses, fit_val_losses=fit.history["val_loss"],
                    fit_counts=fit_counts, step_ms=times, kernel_sums_per_step=sums, metrics=metrics)
@@ -1148,9 +1184,8 @@ def main() -> int:
     # -- report: one entry per kernel form; sums per two-stream frame over
     # the mixed main path for the serving kernels, per step-1 train step for
     # K2's K x K form and K5, per guided train step for the guided backward
-    # forms, per bf16 guided train step for the bf16 forms of K2's K x K
-    # and 4x4/s2 forms and for the tensor-core backward forms (launches: the
-    # serving run's, and each fit's)
+    # forms, per bf16 guided train step for the tensor-core backward forms
+    # (launches: the serving run's, and each fit's)
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke_calls.json").write_text(json.dumps(
@@ -1160,12 +1195,8 @@ def main() -> int:
                    for k, v in {**results, **train_results, **guided_results, **bf16_results}.items()]},
         indent=1))
     entries = []
-    forms = [(k, None) for k in KERNELS] + [(k, "bf16") for k in BF16_KERNELS]
-    for kname, form in forms:
-        src, replaces = KERNELS[kname]
-        if form:
-            per, res, launches = bf16_calls, bf16_results, bf16_counts[kname]
-        elif kname in TRAIN_KERNELS:
+    for kname, (src, replaces) in KERNELS.items():
+        if kname in TRAIN_KERNELS:
             per, res, launches = train_calls, train_results, train_counts[kname]
         elif kname in GUIDED_KERNELS:
             per, res, launches = guided_calls, guided_results, guided_counts[kname]
@@ -1180,7 +1211,7 @@ def main() -> int:
         bound = tot("bound_ms")
         ops_share = sum(r["bound_ms"] * per[k] for k, r in calls if r["bound_by"] == "operations")
         entries.append(dict(
-            name=kname + ("_bf16" if form else ""), route="cuda", source=src, replaces=replaces,
+            name=kname, route="cuda", source=src, replaces=replaces,
             dtype="/".join(sorted({r["in_dtype"] for _, r in calls})), launches=launches,
             max_abs_err=max(r["abs_err"] for _, r in calls),
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=bound,

@@ -3,11 +3,11 @@
 // (the 1x1 shortcut at the same stride reads the 3x3 window's centre tap);
 // and a K x K form without bias for the training backward (below,
 // nct_conv_kxk): K in {1, 3, 5} at stride 1, and 4x4 at stride 2, f32 in
-// and out, or bf16 in and out for the 3x3 and 4x4 forms. The bf16 -> bf16
-// forward with 8 or more output channels runs on the tensor cores instead
-// (conv_tc.cu), and the stride-1 bf16 outputs of narrow heads and of the
-// uint8 frame on the thin form (conv_thin.cu); here bf16 out is only their
-// stride-2 forms.
+// and out. The bf16 -> bf16 forward with 8 or more output channels and the
+// bf16 forms of the K x K backward (3x3 at stride 1, 4x4 at stride 2) run on
+// the tensor cores instead (conv_tc.cu), and the stride-1 bf16 outputs of
+// narrow heads and of the uint8 frame on the thin form (conv_thin.cu); here
+// bf16 out is only their stride-2 forms.
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel in its stride-1,
 // residual_channels, multi-part, uint8-decode and stride-2 (lane_stride2 /
@@ -153,11 +153,8 @@ static int dispatch_stride(const ConvArgs& a, int stride, bool res,
 // staging as the 3x3 form: an input tile of K_CIC channels with its halo and
 // the matching weights in shared memory, COT output channels of one pixel
 // per thread in registers. The input is one part read through its strides,
-// so a crop is a view. Storage type T (f32, or bf16 for the mixed schedule's
-// backward, where the JAX backwards cast the cotangent to the kernel's
-// dtype): loaded through load_f<T> into the same f32 tiles, summed in f32,
-// the output rounded to T once, as the forward K2 does for bf16. So a bf16
-// call equals the f32 form run on the widened input, rounded.
+// so a crop is a view. Storage type T: f32 only (the mixed schedule's bf16
+// forms are modes of conv_tc.cu).
 // ---------------------------------------------------------------------------
 
 constexpr int K_TW = 32, K_TH = 4, K_CIC = 8, K_THREADS = K_TW * K_TH;
@@ -285,9 +282,9 @@ extern "C" int nct_conv3x3(const void* const* part_ptrs,
 
 // Plain C entry of the K x K form: one input part (pointer + 6 metadata
 // values, see nct::fill_parts) of storage type dtype, which the output
-// shares; (ksize, stride) in {1, 3, 5} x {1} or (4, 2) for F32, (3, 1) or
-// (4, 2) for BF16; pad in [0, ksize - 1], output (ho, wo) = ((H, W) + 2 pad
-// - ksize) / stride + 1.
+// shares, F32 only (bf16: nct_conv_tc); (ksize, stride) in {1, 3, 5} x {1}
+// or (4, 2); pad in [0, ksize - 1], output (ho, wo) = ((H, W) + 2 pad -
+// ksize) / stride + 1.
 extern "C" int nct_conv_kxk(const void* const* x_ptr, const long long* x_meta,
                             int dtype, int B, int H, int W, int cin, int ho,
                             int wo, int cout, int ksize, int stride, int pad,
@@ -311,10 +308,6 @@ extern "C" int nct_conv_kxk(const void* const* x_ptr, const long long* x_meta,
     }
   } else if (dtype == F32 && stride == 2 && ksize == 4) {
     return dispatch_kxk<float, 4, 2>(a, st);
-  } else if (dtype == BF16 && stride == 1 && ksize == 3) {
-    return dispatch_kxk<__nv_bfloat16, 3, 1>(a, st);
-  } else if (dtype == BF16 && stride == 2 && ksize == 4) {
-    return dispatch_kxk<__nv_bfloat16, 4, 2>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,17 +1,23 @@
 // K2 and K3 in bf16 on the tensor cores: the 3x3 pad-1 conv (stride 1 or 2,
 // bias, ReLU, optional fused 1x1 residual shortcut, input as a list of
-// parts), the 4x4/s2/p1 transpose conv (bias, ReLU, parts) and the 3x3/s2/p1
-// transpose conv with output_padding 1 (the input cotangent of a 3x3
-// stride-2 conv, no bias), bf16 in and out with f32 accumulation, as one
-// implicit-GEMM kernel template (nct_conv_tc).
+// parts), the 4x4/s2/p1 transpose conv (bias, ReLU, parts), and three
+// input cotangents of the mixed schedule's backward, no bias: the 3x3/s2/p1
+// transpose conv with output_padding 1 (of a 3x3 stride-2 conv), the 3x3
+// pad-1 conv with the flipped, in/out-transposed weight (of a stride-1
+// conv) and the 4x4/s2/p1 conv (of the 4x4/s2 transpose conv); bf16 in and
+// out with f32 accumulation, as one implicit-GEMM kernel template
+// (nct_conv_tc).
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel (:128) in its bf16 stride-1,
 // residual_channels, multi-part, stride-2 and d2s_channels forms (the mixed
-// schedule's feature convs, and the d2s_channels form on the stride-2
-// cotangent that pallas_s2._s2_res_bwd (:123-136) runs for the mixed
-// schedule's backward; f32 stays on the CUDA-core kernels of conv.cu
-// and convt.cu, the uint8 frame and the 1-channel heads run on conv_thin.cu,
-// and the bf16 conv chain on conv_chain_tc.cu, which shares tc.cuh).
+// schedule's feature convs), and in the three bf16 forms the mixed
+// schedule's backward runs: the d2s_channels form on the stride-2 cotangent
+// (pallas_s2._s2_res_bwd, :123-136), the stride-1 conv of the cotangent
+// with the flipped kernel (pallas_conv.transpose_conv_bhcw, :797) and the
+// lane_stride2 kw=4 conv of the transpose conv's cotangent (pallas_s2._ct_bwd,
+// :220). f32 stays on the CUDA-core kernels of conv.cu and convt.cu, the
+// uint8 frame and the 1-channel heads run on conv_thin.cu, and the bf16
+// conv chain on conv_chain_tc.cu, which shares tc.cuh.
 //
 // Bound on the H100: at 32-64 channels a 3x3 conv does 2*9*cout FLOP per
 // input value over (cin + cout) * 2 bytes, at the card's bf16 ridge (~295
@@ -50,6 +56,21 @@
 //    the guided net's cotangents that costs nothing measurable (pairing the
 //    parities 4 + 1 and 2 + 2 on each warp scheduler gained nothing on the
 //    H100): the loads and the epilogue, not the MMAs, set the time.
+//  * The input cotangent of a stride-1 conv (mode S1F, mode S1 with w_flip
+//    on the C entry) is mode S1 on the forward conv's own weight as stored,
+//    (o, i, 3, 3) for forward output o (here an input channel) and input i
+//    (here an output column): the staging puts tap 8 - t of w[o][i] into
+//    slot t, column i, so no flipped, transposed copy is made per call.
+//  * The 4x4/s2/p1 conv (mode K4) is mode S2's geometry with a 4x4
+//    footprint: an input tile of (TH - 1) * 2 + 4 rows by 34 pixels, 16 tap
+//    slots, a tap a row address at stride 2 (so, as in mode S2, a tap's 16
+//    rows sit two pixels apart and its A reads are 2-way bank-conflicted).
+//    Its 16 taps do not all fit resident at 64 -> 65 channels (128 columns:
+//    295 KB), so the columns run at a granularity of 16 and, where the
+//    weights and a 4 x 16 tile still exceed a block, split into column
+//    groups: each block holds one group's weights (65 -> two groups of 48:
+//    111 KB) and walks every tile for that group, so the input is read once
+//    per group.
 //  * Epilogue: bias in f32, ReLU, the shortcut columns added, one rounding to
 //    bf16, staged in shared memory so the NCHW stores are 16-byte vectors.
 #include "tc.cuh"
@@ -60,13 +81,17 @@ namespace tc {
 constexpr int TW = 16;       // tile width in output pixels: one m16 MMA tile per tile row
 constexpr int THREADS = 256;  // at most, per block
 
-// conv stride 1, conv stride 2, 4x4/s2 transpose conv, 3x3/s2 transpose conv
-enum Mode : int { S1 = 0, S2 = 1, T = 2, T3 = 3 };
+// conv stride 1, conv stride 2, 4x4/s2 transpose conv, 3x3/s2 transpose
+// conv, 4x4/s2 conv, and the stride-1 conv on a flipped, in/out-transposed
+// weight (mode S1 with w_flip on the C entry)
+enum Mode : int { S1 = 0, S2 = 1, T = 2, T3 = 3, K4 = 4, S1F = 5 };
 
 // the transpose convs tile their input grid and store depth-to-space
 __host__ __device__ constexpr bool transposed(int mode) { return mode == T || mode == T3; }
+__host__ __device__ constexpr int stride_of(int mode) { return mode == S2 || mode == K4 ? 2 : 1; }
+__host__ __device__ constexpr int ksize(int mode) { return mode == K4 ? 4 : 3; }
 __host__ __device__ constexpr int slots(int mode, bool res) {
-  return mode == T ? 16 : mode == T3 ? 9 : (res ? 10 : 9);
+  return mode == T || mode == K4 ? 16 : mode == T3 ? 9 : (res ? 10 : 9);
 }
 
 struct Args {
@@ -75,9 +100,10 @@ struct Args {
   int nparts, B, H, W, cin, cout, ho, wo;
   int kc;     // cin rounded up to 16
   int cps;    // shared-memory row of a pixel or a weight column, bf16: kc + 8
-  int coutp;  // cout rounded up to the columns of the warps
+  int coutp;   // a block's columns: its group of cout, rounded up to the columns of the warps
+  int groups;  // column groups: block b computes columns [(b % groups) * coutp, + coutp)
   int relu;
-  const void* w;    // conv (cout, cin, 3, 3); transpose conv (cin, cout, 4, 4)
+  const void* w;    // conv (cout, cin, k, k); transpose conv and S1F (cin, cout, k, k)
   const void* wsc;  // (cout, cin): 1x1 shortcut of the residual form, w's type
   int w_bf16;
   const void* bias;  // (cout) or null
@@ -89,8 +115,8 @@ struct Args {
 
 template <int MODE, int TH>
 struct Geo {
-  static constexpr int S = MODE == S2 ? 2 : 1;
-  static constexpr int IH = (TH - 1) * S + 3, IW = (TW - 1) * S + 3;
+  static constexpr int S = stride_of(MODE);
+  static constexpr int IH = (TH - 1) * S + ksize(MODE), IW = (TW - 1) * S + ksize(MODE);
   // 8-pixel groups of an input row, loaded from x = ox0 * S - 8 (aligned):
   // group g, element j is tile column 8 g + j - 7
   static constexpr int G = (IW + 14) / 8;
@@ -189,16 +215,16 @@ __device__ __forceinline__ void mma_tap(float (&acc)[2][2 * NTP][4], uint32_t a0
       for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
 }
 
-// MODE: S1, S2 or T. RES: the residual form (conv only). NTP: pairs of
-// 8-column n-tiles per warp and column group. WM: warps along M, two tile
-// rows each (TH = 2 WM). The block has WM x WN warps, WN = coutp / (16 NTP)
-// column blocks (times 4 parities for T).
+// MODE: a Mode. RES: the residual form (conv only). NTP: pairs of 8-column
+// n-tiles per warp and column group. WM: warps along M, two tile rows each
+// (TH = 2 WM). The block has WM x WN warps, WN = coutp / (16 NTP) column
+// blocks (times 4 parities for T and T3).
 template <int MODE, bool RES, int NTP, int WM>
 __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   constexpr int TH = 2 * WM, NT = 2 * NTP;
   // input units (4 channels x 8 pixels) prefetched per thread; fewer where
-  // the accumulators of 4 column pairs leave fewer registers
-  constexpr int MAXU = NTP >= 4 ? 1 : 3;
+  // the accumulators of 3 or 4 column pairs leave fewer registers
+  constexpr int MAXU = NTP >= 3 ? 1 : 3;
   using Gm = Geo<MODE, TH>;
   constexpr int S = Gm::S;
   NCT_DYN_SHARED(unsigned char, smem);
@@ -208,12 +234,14 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   unsigned short* u = reinterpret_cast<unsigned short*>(bs + a.coutp);
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % WM, wn = warp / WM;
+  // the block's column group: output channels [cbase, cbase + ncol)
+  const int cbase = (blockIdx.x % a.groups) * a.coutp, ncol = min(a.coutp, a.cout - cbase);
 
   // -- weights and bias, once per block: zero, then scatter in read order
   for (int i = tid; i < nslots * a.coutp * a.cps / 8; i += nthr)
     reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
   for (int i = tid; i < a.coutp; i += nthr)
-    bs[i] = (a.bias && i < a.cout) ? load_w(a.bias, a.bias_bf16, i) : 0.f;
+    bs[i] = (a.bias && i < ncol) ? load_w(a.bias, a.bias_bf16, cbase + i) : 0.f;
   __syncthreads();
   // each thread walks rows of the stored weight (the taps of one input and
   // one output channel, contiguous), rounding each tap to bf16 into its slot
@@ -232,12 +260,21 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
         put((py * 2 + px) * 4 + ay * 2 + ax, w.q, w.rest, a.w, 16LL * rr + kk);
       }
     }
-  } else if constexpr (MODE == T3) {
-    // (cin, cout, 3, 3): slot = ky * 3 + kx
+  } else if constexpr (MODE == T3 || MODE == S1F) {
+    // (cin, cout, 3, 3): slot = ky * 3 + kx; for S1F the stride-1 conv's
+    // weight, flipped: slot = (2 - ky) * 3 + 2 - kx
     Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
     for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) put(tap, w.q, w.rest, a.w, 9LL * rr + tap);
+      for (int tap = 0; tap < 9; ++tap) put(MODE == S1F ? 8 - tap : tap, w.q, w.rest, a.w, 9LL * rr + tap);
+    }
+  } else if constexpr (MODE == K4) {
+    // (cout, cin, 4, 4), the block's columns only: slot = ky * 4 + kx
+    Walk w(tid, nthr, a.cin);  // q: input channel, rest: the block's output channel
+    for (int rr = tid; rr < ncol * a.cin; rr += nthr, w.next()) {
+      const long long row = static_cast<long long>(cbase + w.rest) * a.cin + w.q;
+#pragma unroll
+      for (int tap = 0; tap < 16; ++tap) put(tap, w.rest, w.q, a.w, 16 * row + tap);
     }
   } else {
     Walk w(tid, nthr, a.cin);  // q: input channel, rest: output channel
@@ -263,7 +300,9 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   const uint32_t arow = S * Gm::IW * rowb, bpair = 16 * rowb, bslot = a.coutp * rowb;
 
   const int nq = a.kc / 4, units = Gm::IH * Gm::G * nq;
-  int t = blockIdx.x;
+  // the group's blocks walk every tile
+  const int tstep = gridDim.x / a.groups;
+  int t = blockIdx.x / a.groups;
   if (t >= a.tiles) return;
   {
     int b, oy0, ox0;
@@ -277,11 +316,11 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   }
   __syncthreads();
 
-  for (; t < a.tiles; t += gridDim.x) {
+  for (; t < a.tiles; t += tstep) {
     int b, oy0, ox0;
     tile_origin<MODE, TH>(a, t, b, oy0, ox0);
     // prefetch the block's next tile into registers while the MMAs run
-    const int tn = t + gridDim.x;
+    const int tn = t + tstep;
     int nb = 0, noy0 = 0, nox0 = 0;
     uint4 pf[MAXU][4];
     if (tn < a.tiles) {
@@ -321,9 +360,10 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
           mma_tap<NTP>(acc, a_lane + ((ay + 1) * Gm::IW + ax + 1) * rowb, arow,
                        b_lane + ((py + 1 - 2 * ay) * 3 + px + 1 - 2 * ax) * bslot, bpair, kchunks);
     } else {
+      constexpr int K = ksize(MODE);
 #pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap)
-        mma_tap<NTP>(acc, a_lane + ((tap / 3) * Gm::IW + tap % 3) * rowb, arow, b_lane + tap * bslot,
+      for (int tap = 0; tap < K * K; ++tap)
+        mma_tap<NTP>(acc, a_lane + ((tap / K) * Gm::IW + tap % K) * rowb, arow, b_lane + tap * bslot,
                      bpair, kchunks);
       if constexpr (RES)
         mma_tap<NTP>(accs, a_lane + (Gm::IW + 1) * rowb, arow, b_lane + 9 * bslot, bpair, kchunks);
@@ -354,13 +394,13 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
     {
       constexpr int VPR = Gm::OW / 8;  // 16-byte vectors per stage row
       const int oyb = transposed(MODE) ? 2 * oy0 : oy0, oxb = transposed(MODE) ? 2 * ox0 : ox0;
-      for (int i = tid; i < a.cout * Gm::OH * VPR; i += nthr) {
+      for (int i = tid; i < ncol * Gm::OH * VPR; i += nthr) {
         const int vx = i % VPR, rr = (i / VPR) % Gm::OH, co = i / (VPR * Gm::OH);
         const int oy = oyb + rr, ox = oxb + vx * 8;
         if (oy >= a.ho || ox >= a.wo) continue;
         const uint4 v = *reinterpret_cast<const uint4*>(u + co * Gm::OS + rr * Gm::OW + vx * 8);
         unsigned short* dst = reinterpret_cast<unsigned short*>(a.out) +
-                              ((static_cast<long long>(b) * a.cout + co) * a.ho + oy) * a.wo + ox;
+                              ((static_cast<long long>(b) * a.cout + cbase + co) * a.ho + oy) * a.wo + ox;
         if (a.out_vec && ox + 8 <= a.wo) {
           *reinterpret_cast<uint4*>(dst) = v;
         } else {
@@ -387,8 +427,8 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
 }
 
 inline size_t smem_bytes(int mode, bool res, int th, int coutp, int cps) {
-  const int s = mode == S2 ? 2 : 1;
-  const int ih = (th - 1) * s + 3, iw = (TW - 1) * s + 3;
+  const int s = stride_of(mode), k = ksize(mode);
+  const int ih = (th - 1) * s + k, iw = (TW - 1) * s + k;
   const int oh = transposed(mode) ? 2 * th : th, ow = transposed(mode) ? 2 * TW : TW;
   const size_t in = static_cast<size_t>(ih) * iw * cps * 2;
   const size_t out = static_cast<size_t>(coutp) * (oh * ow + 8) * 2;
@@ -408,8 +448,10 @@ int launch(Args& a, int wn, cudaStream_t st) {
   a.tiles = a.B * a.tiles_x * a.tiles_y;
   int resident = 0;
   if (const int e = resident_blocks(k, threads, smem, resident)) return e;
-  const int grid = a.tiles < resident ? a.tiles : resident;
-  NCT_LAUNCH(k, dim3(grid), dim3(threads), smem, st, a);
+  // as many blocks as fit, the same number for every column group
+  const int fit = resident / a.groups > 1 ? resident / a.groups : 1;
+  const int per_group = a.tiles < fit ? a.tiles : fit;
+  NCT_LAUNCH(k, dim3(per_group * a.groups), dim3(threads), smem, st, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,10 +475,31 @@ int dispatch_ntp(Args& a, int ntp, cudaStream_t st) {
     case 1: return launch_fit<MODE, RES, 1>(a, wn, st);
     case 2: return launch_fit<MODE, RES, 2>(a, wn, st);
   }
-  if constexpr (!RES) {
+  if constexpr (MODE == K4) {
+    if (ntp == 3) return launch_fit<MODE, RES, 3>(a, wn, st);
+  } else if constexpr (!RES) {
     if (ntp == 4) return launch_fit<MODE, RES, 4>(a, wn, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Mode K4's columns: cout at a granularity of 16 (33 -> 48, not 64: faster
+// on the guided net's three calls than 32, measured on the H100), split
+// into as few groups as leave each group at most 128 columns in at most 4
+// warp columns, and its weights and a 4 x 16 tile inside a block; the pairs
+// per warp: 3 where they divide the group's, else 2, else 1.
+inline int k4_ntp(int coutp) {
+  const int cp = coutp / 16;
+  return cp % 3 == 0 ? 3 : cp % 2 == 0 ? 2 : 1;
+}
+inline void k4_columns(Args& a) {
+  for (int g = 1;; ++g) {
+    a.coutp = ((a.cout + g - 1) / g + 15) / 16 * 16;
+    a.groups = (a.cout + a.coutp - 1) / a.coutp;
+    if (a.coutp == 16 || (a.coutp <= 128 && a.coutp / (16 * k4_ntp(a.coutp)) <= 4 &&
+                          smem_bytes(K4, false, 4, a.coutp, a.cps) <= MAX_SMEM))
+      return;
+  }
 }
 
 }  // namespace tc
@@ -445,23 +508,27 @@ int dispatch_ntp(Args& a, int ntp, cudaStream_t st) {
 // Plain C entry. parts: n pointers + 6*n metadata (see nct::fill_parts), bf16,
 // all of (B, H, W); mode 0: 3x3 pad-1 conv at stride 1, 1: at stride 2, 2:
 // 4x4/s2/p1 transpose conv, 3: 3x3/s2/p1 transpose conv with output_padding
-// 1. w: f32 (w_dtype 0) or bf16 (1), (cout, cin, 3, 3) for a conv, (cin,
-// cout, 4, 4) or (cin, cout, 3, 3) for a transpose conv; wsc (cout, cin) of
-// w's type selects the residual form of a conv, relu(conv + bias) + conv1x1;
-// bias (cout) f32 (bias_dtype 0) or bf16 (1), or null. out: (B, cout, ho, wo)
+// 1, 4: 4x4 pad-1 conv at stride 2 (H, W >= 2). w: f32 (w_dtype 0) or bf16
+// (1), (cout, cin, k, k) for a conv, (cin, cout, 4, 4) or (cin, cout, 3, 3)
+// for a transpose conv; w_flip 1 (mode 0 only, no shortcut) reads a (cin,
+// cout, 3, 3) w as the stride-1 conv whose input cotangent this is: tap
+// (ky, kx) of w[ci][co] at (2 - ky, 2 - kx); wsc (cout, cin) of w's type
+// selects the residual form of a conv, relu(conv + bias) + conv1x1; bias
+// (cout) f32 (bias_dtype 0) or bf16 (1), or null. out: (B, cout, ho, wo)
 // bf16, contiguous. Takes cout up to 128 (64 for the residual form and the
-// transpose convs) where the weights and one input tile fit in shared
-// memory; returns cudaErrorInvalidValue for any other call, else
-// cudaGetLastError() after the launch.
+// transpose convs; any for mode 4, in column groups) where the weights and
+// one input tile fit in shared memory; returns cudaErrorInvalidValue for any
+// other call, else cudaGetLastError() after the launch.
 extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_meta, int nparts,
                            int B, int H, int W, int cin, int cout, int mode, const void* w,
-                           int w_dtype, const void* wsc, const void* bias, int bias_dtype,
+                           int w_dtype, int w_flip, const void* wsc, const void* bias, int bias_dtype,
                            void* out, int relu, void* stream) {
   using namespace nct;
   using namespace nct::tc;
   const bool res = wsc != nullptr;
   if (nparts < 1 || nparts > MAX_PARTS || B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1 ||
-      mode < S1 || mode > T3 || (res && transposed(mode)))
+      mode < S1 || mode > K4 || (res && mode != S1 && mode != S2) || (w_flip != 0 && w_flip != 1) ||
+      (w_flip && (mode != S1 || res)) || (mode == K4 && (H < 2 || W < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   fill_parts(a.parts, part_ptrs, part_meta, nparts);
@@ -475,12 +542,14 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   if (total != cin) return static_cast<int>(cudaErrorInvalidValue);
   a.nparts = nparts;
   a.B = B, a.H = H, a.W = W, a.cin = cin, a.cout = cout;
-  a.ho = transposed(mode) ? 2 * H : mode == S2 ? (H - 1) / 2 + 1 : H;
-  a.wo = transposed(mode) ? 2 * W : mode == S2 ? (W - 1) / 2 + 1 : W;
+  a.ho = transposed(mode) ? 2 * H : mode == S2 ? (H - 1) / 2 + 1 : mode == K4 ? H / 2 : H;
+  a.wo = transposed(mode) ? 2 * W : mode == S2 ? (W - 1) / 2 + 1 : mode == K4 ? W / 2 : W;
   a.kc = (cin + 15) / 16 * 16;
   a.cps = a.kc + 8;
   const int gran = cout <= 16 ? 16 : cout <= 64 ? 32 : 64;
   a.coutp = (cout + gran - 1) / gran * gran;
+  a.groups = 1;
+  if (mode == K4) k4_columns(a);
   a.relu = relu;
   a.w = w, a.wsc = wsc, a.w_bf16 = w_dtype == BF16;
   a.bias = bias, a.bias_bf16 = bias_dtype == BF16;
@@ -491,14 +560,18 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   // conv's parity groups one warp wide
   int ntp = a.coutp / 32 > 1 ? a.coutp / 32 : a.coutp / 16;
   if (transposed(mode)) ntp = a.coutp / 16 > 4 ? 4 : a.coutp / 16;
+  if (mode == K4) ntp = k4_ntp(a.coutp);
   if (a.coutp > (transposed(mode) || res ? 64 : 128) || (w_dtype != F32 && w_dtype != BF16) ||
       (bias_dtype != F32 && bias_dtype != BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case S1: return res ? dispatch_ntp<S1, true>(a, ntp, st) : dispatch_ntp<S1, false>(a, ntp, st);
+    case S1:
+      if (w_flip) return dispatch_ntp<S1F, false>(a, ntp, st);
+      return res ? dispatch_ntp<S1, true>(a, ntp, st) : dispatch_ntp<S1, false>(a, ntp, st);
     case S2: return res ? dispatch_ntp<S2, true>(a, ntp, st) : dispatch_ntp<S2, false>(a, ntp, st);
     case T: return dispatch_ntp<T, false>(a, ntp, st);
-    default: return dispatch_ntp<T3, false>(a, ntp, st);
+    case T3: return dispatch_ntp<T3, false>(a, ntp, st);
+    default: return dispatch_ntp<K4, false>(a, ntp, st);
   }
 }

@@ -39,8 +39,9 @@ NVCC_FLAGS = [
 LAUNCHES: dict[str, int] = {
     "nconv": 0, "conv": 0, "conv_tc": 0, "conv_thin": 0, "conv_transpose": 0, "conv_transpose_tc": 0,
     "conv_chain": 0, "conv_chain_tc": 0,
-    "conv_kxk": 0, "filtergrad": 0,
-    "conv4x4s2": 0, "conv_transpose3x3s2": 0, "conv_transpose3x3s2_tc": 0, "wgrad": 0, "wgrad_tc": 0,
+    "conv_kxk": 0, "conv_input_grad_tc": 0, "filtergrad": 0,
+    "conv4x4s2": 0, "conv4x4s2_tc": 0, "conv_transpose3x3s2": 0, "conv_transpose3x3s2_tc": 0, "wgrad": 0,
+    "wgrad_tc": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -55,7 +56,7 @@ _SIGNATURES = {
     "nct_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, P],
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
     "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
-    "nct_conv_tc": [P, P, I, I, I, I, I, I, I, P, I, P, P, I, P, I, P],
+    "nct_conv_tc": [P, P, I, I, I, I, I, I, I, P, I, I, P, P, I, P, I, P],
     "nct_conv_thin": [P, P, I, I, I, I, I, I, I, P, P, P, I, P, I, P],
     "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nct_conv_chain_tc": [P, I, I, I, I, I, I, P, P, P, P, I, P, P],

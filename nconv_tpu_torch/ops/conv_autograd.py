@@ -22,25 +22,29 @@ its f32 master weight); ``d_x`` is cast to each part's dtype, and ``d_w``
     (the caller stacks ``[main | centre-embedded 1x1 shortcut]``, see
     ``models/layers.py:stack_shortcut``). Forward K2; the ReLU mask is
     ``out > 0`` of the saved output; ``d_x`` is one input-gradient conv,
-    K2's K x K form at stride 1 or K3's 3x3/s2 form at stride 2 (cropped
-    to an odd input's size), sliced per part and skipped when no part needs
-    it; ``d_w`` one K6 launch over all parts; ``d_b`` a plain sum.
+    :func:`~.convops.conv2d_input_grad` at stride 1 (f32: K2's K x K form;
+    bf16: the tensor cores, reading ``weight`` flipped as stored) or K3's
+    3x3/s2 form at stride 2 (cropped to an odd input's size), sliced per
+    part and skipped when no part needs it; ``d_w`` one K6 launch over all
+    parts; ``d_b`` a plain sum.
   * :func:`conv3x3_residual_trainable` — the fused residual form
     ``relu(conv3x3(x) + b) + conv1x1(x)`` at stride 1 or 2. Ports the
     residual form of ``_conv2d_bhcw_bwd`` (``pallas_conv.py:821-853``):
     forward K2's residual form; the backward recomputes only the shortcut
     (K2 on the centre-embedded 1x1 kernel alone, no ReLU) and recovers the
     ReLU mask as ``(out - short) > 0``, then runs the cotangent pair
-    ``[g * mask | g]`` through one input-gradient conv (K2's K x K form, or
-    K3's 3x3/s2 form at stride 2) and one K6 launch against the stacked
-    kernel ``[weight | centre-embedded shortcut]``. In bf16 the recovered
-    mask can flip where ``|main + b|`` is below the shortcut's bf16 ulp, as
-    JAX's own comment says (``:827-834``): the port computes the same
-    function, flips included.
+    ``[g * mask | g]`` through one input-gradient conv (the stride-1 form
+    of its dtype, or K3's 3x3/s2 form at stride 2) and one K6 launch
+    against the stacked kernel ``[weight | centre-embedded shortcut]``. In
+    bf16 the recovered mask can flip where ``|main + b|`` is below the
+    shortcut's bf16 ulp, as JAX's own comment says (``:827-834``): the port
+    computes the same function, flips included.
   * :func:`conv_transpose4x4s2_trainable` — the 4x4/s2/p1 transpose conv over
     parts, bias and ReLU optional. Ports ``pallas_s2._ct_fwd_impl/_ct_bwd``.
-    Forward K3; ``d_x`` K2's 4x4/s2 form, sliced per part; ``d_w`` K6 with
-    the roles swapped; ``d_b`` a plain sum.
+    Forward K3; ``d_x`` the 4x4 stride-2 conv of the cotangent
+    (:func:`~.convops.conv_transpose4x4s2_input_grad`: f32 on K2's K x K
+    form, bf16 on the tensor cores), sliced per part; ``d_w`` K6 with the
+    roles swapped; ``d_b`` a plain sum.
 
 Under ``torch.no_grad()`` a Function is its forward alone, the serving
 kernel: the model's layers call the Functions in every mode.

@@ -27,8 +27,11 @@ Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
 Gradients, for the training backward (f32, and bf16 operands in the mixed
 schedule except K5):
   * :func:`conv2d_input_grad` — the input cotangent of a stride-1 conv, a
-    conv of the output cotangent with the flipped, in/out-transposed kernel
-    on K2's K x K stride-1 form (``csrc/conv.cu``, ``nct_conv_kxk``);
+    conv of the output cotangent with the flipped, in/out-transposed kernel:
+    f32 on K2's K x K stride-1 form (``csrc/conv.cu``, ``nct_conv_kxk``,
+    counter ``conv_kxk``), bf16 (3x3 pad 1) on the tensor cores (mode 0 of
+    ``csrc/conv_tc.cu`` reading the forward weight flipped as it stages it,
+    counter ``conv_input_grad_tc``);
   * :func:`conv2d_weight_grad` — the weight cotangent of step 1's
     stride-1 convs on K5 (``csrc/filtergrad.cu``);
   * :func:`conv3x3s2_input_grad` — the input cotangent of a 3x3 stride-2
@@ -37,8 +40,9 @@ schedule except K5):
     tensor cores (mode 3 of ``csrc/conv_tc.cu``, counter
     ``conv_transpose3x3s2_tc``);
   * :func:`conv_transpose4x4s2_input_grad` — the input cotangent of the
-    4x4/s2 transpose conv, a 4x4 stride-2 conv on K2's K x K form at
-    stride 2;
+    4x4/s2 transpose conv, a 4x4 stride-2 conv: f32 on K2's K x K form at
+    stride 2 (counter ``conv4x4s2``), bf16 on the tensor cores (mode 4 of
+    ``csrc/conv_tc.cu``, counter ``conv4x4s2_tc``);
   * :func:`conv2d_wgrad` — the weight cotangent of any of the guided net's
     convs (3x3 at stride 1 or 2, and the 4x4/s2 transpose conv), its inputs
     given as parts: f32 on K6 (``csrc/wgrad.cu``, counter ``wgrad``), bf16
@@ -266,7 +270,7 @@ def _conv_tc_kernel(parts, weight, bias, stride, relu, shortcut):
     out = torch.empty((b, cout, ho, wo), device=parts[0].device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
     kernels.launch("conv_tc", "nct_conv_tc", out, ptrs, meta, len(parts), b, h, w, cin, cout, stride - 1, wt,
-                   _weight_code(wt, "conv_tc"), st, bt, 0 if bt is None else _weight_code(bt, "conv_tc"), out,
+                   _weight_code(wt, "conv_tc"), 0, st, bt, 0 if bt is None else _weight_code(bt, "conv_tc"), out,
                    int(relu))
     return out
 
@@ -330,7 +334,7 @@ def _conv_transpose_tc_kernel(parts, weight, bias, relu):
     out = torch.empty((b, cout, 2 * h, 2 * w), device=parts[0].device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
     kernels.launch("conv_transpose_tc", "nct_conv_tc", out, ptrs, meta, len(parts), b, h, w, cin, cout, 2, wt,
-                   _weight_code(wt, "conv_transpose_tc"), None, bt,
+                   _weight_code(wt, "conv_transpose_tc"), 0, None, bt,
                    0 if bt is None else _weight_code(bt, "conv_transpose_tc"), out, int(relu))
     return out
 
@@ -435,6 +439,8 @@ def conv2d_input_grad(cot: torch.Tensor, weight: torch.Tensor, padding: int) -> 
     (B, cout, Ho, Wo), in ``cot``'s dtype (f32, or bf16 for k = 3)."""
     if not kernels.on_card(cot, weight):
         return conv2d_input_grad_plain(cot, weight, padding)
+    if cot.dtype == torch.bfloat16:
+        return _conv_input_grad_tc_kernel(cot, weight, padding)
     cot, w_t, pad = _input_grad_conv(cot, weight, padding)
     return _conv_kxk_kernel(cot, w_t, pad, 1)
 
@@ -453,6 +459,8 @@ def conv_transpose4x4s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> t
     weight read as OIHW, O = cin (no flip). In ``cot``'s dtype."""
     if not kernels.on_card(cot, weight):
         return conv_transpose4x4s2_input_grad_plain(cot, weight)
+    if cot.dtype == torch.bfloat16:
+        return _conv4x4s2_tc_kernel(cot, weight)
     return _conv_kxk_kernel(cot, weight, 1, 2)
 
 
@@ -465,14 +473,54 @@ def conv_transpose4x4s2_input_grad_plain(cot, weight):
 def _conv_kxk_kernel(x, weight, padding, stride):
     kernels.no_graph("conv_kxk", x, weight)
     ho, wo = _check_kxk(x, weight, padding, stride)
-    if x.dtype not in _FLOAT_OUT:
-        raise TypeError(f"K2 k x k form takes float32 or bfloat16, got {x.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"K2's CUDA-core k x k form takes float32 (bf16: conv_input_grad_tc, conv4x4s2_tc), "
+                        f"got {x.dtype}")
     b, cin, h, w = x.shape
     cout, k = weight.shape[0], weight.shape[-1]
     out = torch.empty((b, cout, ho, wo), device=x.device, dtype=x.dtype)
     ptrs, meta = kernels.part_args([x], [False])
     kernels.launch("conv_kxk" if stride == 1 else "conv4x4s2", "nct_conv_kxk", out, ptrs, meta,
                    kernels.DTYPE_CODE[x.dtype], b, h, w, cin, ho, wo, cout, k, stride, padding, _f32(weight), out)
+    return out
+
+
+def _conv_input_grad_tc_kernel(cot, weight, padding):
+    """The bf16 input cotangent of a 3x3 pad-1 stride-1 conv on the tensor
+    cores: mode 0 of ``nct_conv_tc`` reading the forward ``weight`` (cout,
+    cin, 3, 3) as stored, flipped and in/out-transposed as it stages it."""
+    kernels.no_graph("conv_input_grad_tc", cot, weight)
+    if _grad_dtype(cot, weight) != torch.bfloat16:
+        raise TypeError(f"the tensor-core stride-1 input-gradient form takes bfloat16, got {cot.dtype}")
+    b, cout, h, w = cot.shape
+    cin = weight.shape[1]
+    if tuple(weight.shape) != (cout, cin, 3, 3) or padding != 1 or cin > 128:
+        raise ValueError(f"the tensor-core stride-1 input-gradient form takes a 3x3 pad-1 conv's weight with "
+                         f"at most 128 input channels; got weight {tuple(weight.shape)}, cotangent "
+                         f"{tuple(cot.shape)}, pad {padding}")
+    wt = _stored(weight)
+    out = torch.empty((b, cin, h, w), device=cot.device, dtype=torch.bfloat16)
+    ptrs, meta = kernels.part_args([cot], [False])
+    kernels.launch("conv_input_grad_tc", "nct_conv_tc", out, ptrs, meta, 1, b, h, w, cout, cin, 0, wt,
+                   _weight_code(wt, "conv_input_grad_tc"), 1, None, None, 0, out, 0)
+    return out
+
+
+def _conv4x4s2_tc_kernel(cot, weight):
+    """The bf16 input cotangent of the 4x4/s2/p1 transpose conv on the
+    tensor cores: mode 4 of ``nct_conv_tc``, the 4x4 stride-2 pad-1 conv of
+    ``cot`` with ``weight`` (cin, cout, 4, 4) read as OIHW."""
+    kernels.no_graph("conv4x4s2_tc", cot, weight)
+    if _grad_dtype(cot, weight) != torch.bfloat16:
+        raise TypeError(f"the tensor-core 4x4/s2 input-gradient form takes bfloat16, got {cot.dtype}")
+    ho, wo = _check_kxk(cot, weight, 1, 2)
+    b, cin, h, w = cot.shape
+    cout = weight.shape[0]
+    wt = _stored(weight)
+    out = torch.empty((b, cout, ho, wo), device=cot.device, dtype=torch.bfloat16)
+    ptrs, meta = kernels.part_args([cot], [False])
+    kernels.launch("conv4x4s2_tc", "nct_conv_tc", out, ptrs, meta, 1, b, h, w, cin, cout, 4, wt,
+                   _weight_code(wt, "conv4x4s2_tc"), 0, None, None, 0, out, 0)
     return out
 
 
@@ -529,7 +577,7 @@ def _conv_transpose3x3s2_tc_kernel(cot, weight):
     out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args([cot], [False])
     kernels.launch("conv_transpose3x3s2_tc", "nct_conv_tc", out, ptrs, meta, 1, b, h, w, cin, cout, 3, wt,
-                   _weight_code(wt, "conv_transpose3x3s2_tc"), None, None, 0, out, 0)
+                   _weight_code(wt, "conv_transpose3x3s2_tc"), 0, None, None, 0, out, 0)
     return out
 
 

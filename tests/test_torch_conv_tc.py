@@ -463,8 +463,9 @@ def test_residual_function_backward_on_the_kernels(card):
         out = ops.conv3x3_residual_trainable([x], w, b, sc)
         out.float().square().sum().backward()
         counts = kernels.launch_counts()
-        form, wgrad = ("conv_tc", "wgrad_tc") if dtype == BF16 else ("conv", "wgrad")
-        assert (counts[form], counts["conv_kxk"], counts[wgrad]) == (2, 1, 1)
+        form, d_x, wgrad = (("conv_tc", "conv_input_grad_tc", "wgrad_tc") if dtype == BF16
+                            else ("conv", "conv_kxk", "wgrad"))
+        assert (counts[form], counts[d_x], counts[wgrad]) == (2, 1, 1)
         cpu = [leaf(t.detach().cpu()) for t in (x, w, b, sc)]
         ref = ops.conv3x3_residual_trainable([cpu[0]], *cpu[1:3], cpu[3])
         ref.float().square().sum().backward()

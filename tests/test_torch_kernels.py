@@ -221,12 +221,11 @@ def test_guided_functions_backward_on_the_kernels(card):
 @pytest.mark.parametrize("h,w", [(20, 36), (37, 150)])
 def test_bf16_gradient_forms_equal_the_f32_forms_on_widened_inputs(card, h, w):
     """The mixed schedule's backward forms against the f32 forms on the
-    widened inputs. K2's K x K forms (3x3 stride 1, 4x4/s2) sum in f32 as
-    the f32 form does: equal to it rounded to bf16 once. The tensor-core
-    forms sum in another order, with the tensor cores' truncating f32 adds:
-    the 3x3/s2 form stands within 5e-3 (the bf16 output rounding); K6 within
-    1e-5 rel RMSE, and no further from a float64 run than the f32 form is,
-    within 2x."""
+    widened inputs. Every bf16 form runs on the tensor cores and sums in
+    another order than the f32 form, with the tensor cores' truncating f32
+    adds: the three input-gradient forms (3x3 stride 1, 4x4/s2, 3x3/s2)
+    stand within 5e-3 (the bf16 output rounding); K6 within 1e-5 rel RMSE,
+    and no further from a float64 run than the f32 form is, within 2x."""
     g = torch.Generator(device=card).manual_seed(7)
     r = lambda *s: torch.randn(*s, generator=g, device=card).bfloat16()
     wide = lambda ts: [t.float() for t in ts]
@@ -234,14 +233,11 @@ def test_bf16_gradient_forms_equal_the_f32_forms_on_widened_inputs(card, h, w):
     kernels.reset_launch_counts()
     w3 = r(24, 20, 3, 3)
     for fn, cot, wt in ((lambda c, k: ops.conv2d_input_grad(c, k, 1), r(2, 24, h, w), w3),
-                        (ops.conv_transpose4x4s2_input_grad, r(2, 16, 2 * h, 2 * w), r(9, 16, 4, 4))):
+                        (ops.conv_transpose4x4s2_input_grad, r(2, 16, 2 * h, 2 * w), r(9, 16, 4, 4)),
+                        (ops.conv3x3s2_input_grad, r(2, 24, h // 2 + 1, w // 2 + 1), w3)):
         got = fn(cot, wt)
         assert got.dtype == torch.bfloat16
-        assert torch.equal(got, fn(cot.float(), wt.float()).bfloat16())
-    cot = r(2, 24, h // 2 + 1, w // 2 + 1)
-    got = ops.conv3x3s2_input_grad(cot, w3)
-    assert got.dtype == torch.bfloat16
-    assert _close(got, ops.conv3x3s2_input_grad(cot.float(), w3.float()), 5e-3)
+        assert _close(got, fn(cot.float(), wt.float()), 5e-3)
 
     def held(xs, gs, k, stride):
         dw = ops.conv2d_wgrad(xs, gs, k, stride=stride, padding=1)
@@ -257,5 +253,6 @@ def test_bf16_gradient_forms_equal_the_f32_forms_on_widened_inputs(card, h, w):
         held(x, [r(2, m, (h - 1) // stride + 1, (w - 1) // stride + 1)], 3, stride)
     held([r(2, 16, 2 * h, 2 * w)], [r(2, 1, h, w), r(2, 8, h, w)], 4, 2)
     counts = kernels.launch_counts()
-    assert (counts["conv_kxk"], counts["conv4x4s2"], counts["conv_transpose3x3s2"],
-            counts["conv_transpose3x3s2_tc"], counts["wgrad"], counts["wgrad_tc"]) == (2, 2, 1, 1, 4, 4)
+    assert (counts["conv_kxk"], counts["conv4x4s2"], counts["conv_transpose3x3s2"], counts["wgrad"]) == (1, 1, 1, 4)
+    assert (counts["conv_input_grad_tc"], counts["conv4x4s2_tc"], counts["conv_transpose3x3s2_tc"],
+            counts["wgrad_tc"]) == (1, 1, 1, 4)

@@ -286,7 +286,9 @@ def _every_wrapper(r):
         ("conv_chain", lambda: convops._chain_kernel(x, w8, b8, w8, b8)),
         ("conv_chain_tc", lambda: convops._chain_tc_kernel(xb, r(32, 8, 3, 3), r(32), r(32, 32, 3, 3), r(32))),
         ("conv_kxk", lambda: convops._conv_kxk_kernel(x, w8, 1, 1)),
+        ("conv_input_grad_tc", lambda: convops._conv_input_grad_tc_kernel(xb, w8.to(bf), 1)),
         ("conv4x4s2", lambda: convops._conv_kxk_kernel(x, r(8, 8, 4, 4), 1, 2)),
+        ("conv4x4s2_tc", lambda: convops._conv4x4s2_tc_kernel(xb, r(8, 8, 4, 4).to(bf))),
         ("filtergrad", lambda: convops._filtergrad_kernel(x, x, 3, 1, 1)),
         ("conv_transpose3x3s2", lambda: convops._conv_transpose3x3s2_kernel(x, w8)),
         ("conv_transpose3x3s2_tc", lambda: convops._conv_transpose3x3s2_tc_kernel(xb, w8.to(bf))),
