@@ -29,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
   4. step-1 training: ``Trainer(UnguidedTask(NConvUNet()))`` at full width
      on KITTI 352x1216, batch 4, adamw, on the JAX bench's synthetic batch.
      (a) the backward's kernels (K2's K x K form, K5) against their plain
-     versions at every distinct shape of one train step; (b) one train step
+     versions at every distinct shape of one train step, each K x K call
+     also with its and its plain version's distance from a float64 run; (b) one train step
      on the kernel path against the plain path, and both against the plain
      path in float64 (the weight cotangent of a normalized conv cancels, so
      its f32 rounding is measured, not assumed); (c) five steps of
@@ -40,7 +41,9 @@ Phases (any failure raises and the script exits non-zero):
      adamw 1e-3 / wd 1e-7, train-mode BN, step 1 frozen (the phase-4 model's
      initial state), on the JAX bench's synthetic guided batch. (a) every
      kernel call of one train step against its plain version, at each
-     distinct shape (the new forms: K3's 3x3/s2, K2's 4x4/s2 and K6); (b)
+     distinct shape (the new forms: K3's 3x3/s2, K2's 4x4/s2 and K6; each
+     K6 and K x K call also with its and its plain version's distance from
+     a float64 run, so a new summation order can be told from an error); (b)
      one train step on the kernel path against the plain path, and the
      gradients against the plain path in float64, and the new BN running
      statistics; (c) five steps of ``Trainer.fit`` on one batch, loss finite
@@ -450,16 +453,18 @@ def check_call(key, g):
     elif kind in ("conv_kxk", "conv4x4s2"):
         _, xsig, wsig, padding, stride = key
         x = _rand(xsig, g)
-        cout, cin, k, _ = wsig[0]
+        # at stride 1, w is the forward conv's weight (x's channels, cout, k, k)
+        cin, k = xsig[0][1], wsig[0][-1]
+        cout = wsig[0][1] if stride == 1 else wsig[0][0]
         w = _rand(wsig, g, scale=(cin * k * k) ** -0.5)
         kern = lambda: convops._conv_kxk_kernel(x, w, padding, stride)
-        plain = lambda: convops.conv2d(x.float(), w.float(), stride=stride, padding=padding).to(x.dtype)
+        as_kxk = lambda t: t.flip(2, 3).transpose(0, 1) if stride == 1 else t
+        plain = lambda: convops.conv2d(x.float(), as_kxk(w).float(), stride=stride, padding=padding).to(x.dtype)
+        ref64 = lambda: convops.conv2d(x.double(), as_kxk(w).double(), stride=stride, padding=padding)
         if stride == 1:
-            # the same function as the input cotangent of the forward conv whose
-            # flipped, in/out-transposed kernel w is: one library call
-            w_fwd = w.flip(2, 3).transpose(0, 1)
+            # the input cotangent of the forward conv whose weight w is: one library call
             out_shape = (x.shape[0], cout, x.shape[2] + 2 * padding - k + 1, x.shape[3] + 2 * padding - k + 1)
-            library = lambda: torch.nn.grad.conv2d_input(out_shape, w_fwd, x, padding=k - 1 - padding)
+            library = lambda: torch.nn.grad.conv2d_input(out_shape, w, x, padding=k - 1 - padding)
         else:
             library = lambda: F.conv2d(x, w, stride=stride, padding=padding)
         out_dt = in_dt = xsig[1]

@@ -26,6 +26,28 @@
 #define NCT_DYN_SHARED(T, name) extern __shared__ __align__(16) T name[]
 #endif
 
+// cp.async and the shared-space addresses it takes; a build may predefine
+// NCT_CP_ASYNC and supply its own (host_emu.h does).
+#ifndef NCT_CP_ASYNC
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global src to shared dst (a shared-space address), of which
+// the first src_bytes are read and the rest zero-filled; asynchronous until
+// cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+// 4 bytes from global src to shared dst, src_bytes (4 or 0) of them read and
+// the rest zero-filled; the f32 kernels' element copies.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+#endif
+
 namespace nct {
 
 enum DType : int { F32 = 0, BF16 = 1, U8 = 2 };
@@ -100,6 +122,14 @@ __device__ __forceinline__ float load_parts(const Part* parts, int nparts,
                    b * q.sb + c * q.sc + y * q.sh + x * q.sw);
 }
 
+// The part of a list of np holding logical channel c; c becomes its index
+// in that part.
+__device__ __forceinline__ int part_of(const Part* parts, int np, int& c) {
+  int p = 0;
+  while (p < np - 1 && c >= parts[p].c) c -= parts[p++].c;
+  return p;
+}
+
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, a block's most on sm_90
 
 // Host side: blocks of kernel k that fit on the current device at (threads,
@@ -154,6 +184,15 @@ inline void fill_parts(Part* dst, const void* const* ptrs,
     dst[i].sh = m[4];
     dst[i].sw = m[5];
   }
+}
+
+// Host side: whether a part's rows of BYTES-byte elements may be read as
+// aligned 16-byte vectors.
+template <int BYTES>
+inline int vec_rows(const Part& p) {
+  constexpr int E = 16 / BYTES;
+  return p.sw == 1 && reinterpret_cast<uintptr_t>(p.ptr) % 16 == 0 && p.sb % E == 0 && p.sc % E == 0 &&
+         p.sh % E == 0;
 }
 
 }  // namespace nct

@@ -536,7 +536,7 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   for (int i = 0; i < nparts; ++i) {
     const Part& p = a.parts[i];
     total += p.c;
-    a.vec[i] = vec_rows(p);
+    a.vec[i] = vec_rows<2>(p);
     if (p.up2) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (total != cin) return static_cast<int>(cudaErrorInvalidValue);

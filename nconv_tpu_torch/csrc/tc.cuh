@@ -1,17 +1,13 @@
 // The tensor-core primitives of the bf16 implicit-GEMM kernels (conv_tc.cu,
-// conv_chain_tc.cu, wgrad_tc.cu): ldmatrix (plain and transposing), mma.sync
-// m16n8k16 bf16 -> f32 and cp.async. A build may predefine NCT_TC_PRIMITIVES
-// and supply its own, as it may NCT_LAUNCH, to run the kernels elsewhere than
-// on the card.
+// conv_chain_tc.cu, wgrad_tc.cu): ldmatrix (plain and transposing) and
+// mma.sync m16n8k16 bf16 -> f32 (cp.async is common.cuh's). A build may
+// predefine NCT_TC_PRIMITIVES and supply its own, as it may NCT_LAUNCH, to
+// run the kernels elsewhere than on the card.
 #pragma once
 
 #include "common.cuh"
 
 #ifndef NCT_TC_PRIMITIVES
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -26,15 +22,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
-
-// 16 bytes from global src to shared dst (a shared-space address), of which
-// the first src_bytes are read and the rest zero-filled; asynchronous until
-// cp_async_wait_all.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -92,14 +79,6 @@ __device__ __forceinline__ uint4 row8(const Part& q, int vec, const unsigned sho
   return make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16), e[4] | (e[5] << 16), e[6] | (e[7] << 16));
 }
 
-// The part of a list of np holding logical channel c; c becomes its index
-// in that part.
-__device__ __forceinline__ int part_of(const Part* parts, int np, int& c) {
-  int p = 0;
-  while (p < np - 1 && c >= parts[p].c) c -= parts[p++].c;
-  return p;
-}
-
 // Four logical channels c0 .. c0 + 3 (of C) of a part list at batch b, image
 // row y (of Hh), 8 pixels from x (of Ww), as four 16-byte rows of raw bf16
 // bits; zero outside the image and past C.
@@ -123,12 +102,6 @@ __device__ __forceinline__ void load_quad(const Part* parts, const int* vec, int
     const Part& q = parts[pk];
     v[k] = row8(q, vec[pk], static_cast<const unsigned short*>(q.ptr) + b * q.sb + ck * q.sc + y * q.sh, x, Ww);
   }
-}
-
-// Host side: whether a bf16 part's rows may be read as aligned 16-byte vectors.
-inline int vec_rows(const Part& p) {
-  return p.sw == 1 && reinterpret_cast<uintptr_t>(p.ptr) % 16 == 0 && p.sb % 8 == 0 && p.sc % 8 == 0 &&
-         p.sh % 8 == 0;
 }
 
 }  // namespace tc

@@ -57,7 +57,6 @@
 namespace nct {
 namespace wtc {
 
-using tc::part_of;
 using tc::quad_of;
 using tc::row8;
 using tc::Walk;
@@ -362,8 +361,8 @@ extern "C" int nct_wgrad_tc(const void* const* g_ptrs, const long long* g_meta, 
   fill_parts(a.g, g_ptrs, g_meta, ng);
   fill_parts(a.x, x_ptrs, x_meta, nx);
   int mg = 0, cx = 0;
-  for (int i = 0; i < ng; ++i) mg += a.g[i].c, a.gvec[i] = tc::vec_rows(a.g[i]);
-  for (int i = 0; i < nx; ++i) cx += a.x[i].c, a.xvec[i] = tc::vec_rows(a.x[i]);
+  for (int i = 0; i < ng; ++i) mg += a.g[i].c, a.gvec[i] = vec_rows<2>(a.g[i]);
+  for (int i = 0; i < nx; ++i) cx += a.x[i].c, a.xvec[i] = vec_rows<2>(a.x[i]);
   for (int i = 0; i < ng; ++i)
     if (a.g[i].up2) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < nx; ++i)

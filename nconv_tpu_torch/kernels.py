@@ -99,7 +99,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.iterdir()):
+    for p in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):  # what nvcc reads, not host_emu.h
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -29,7 +29,8 @@ schedule except K5):
   * :func:`conv2d_input_grad` — the input cotangent of a stride-1 conv, a
     conv of the output cotangent with the flipped, in/out-transposed kernel:
     f32 on K2's K x K stride-1 form (``csrc/conv.cu``, ``nct_conv_kxk``,
-    counter ``conv_kxk``), bf16 (3x3 pad 1) on the tensor cores (mode 0 of
+    counter ``conv_kxk``, reading the forward weight flipped as it stages
+    it), bf16 (3x3 pad 1) on the tensor cores (mode 0 of
     ``csrc/conv_tc.cu`` reading the forward weight flipped as it stages it,
     counter ``conv_input_grad_tc``);
   * :func:`conv2d_weight_grad` — the weight cotangent of step 1's
@@ -404,17 +405,22 @@ def _chain_tc_kernel(x, w1, b1, w2, b2):
 # form, K5 and K6
 # ---------------------------------------------------------------------------
 
-def _input_grad_conv(cot, weight, padding):
-    """The conv that gives the input cotangent: ``cot`` against the
-    spatially flipped, in/out-transposed kernel at pad ``k - 1 - padding``;
-    a negative pad becomes a crop of ``cot`` first."""
-    k = weight.shape[-1]
-    w_t = weight.flip(2, 3).transpose(0, 1)
+def _input_grad_crop(cot, k, padding):
+    """``cot`` and the pad ``k - 1 - padding`` of the conv that gives the
+    input cotangent; a negative pad becomes a crop of ``cot`` (a view)."""
     pad = k - 1 - padding
     if pad < 0:
         cot = cot[:, :, -pad:cot.shape[2] + pad, -pad:cot.shape[3] + pad]
         pad = 0
-    return cot, w_t, pad
+    return cot, pad
+
+
+def _input_grad_conv(cot, weight, padding):
+    """The conv that gives the input cotangent: ``cot`` against the
+    spatially flipped, in/out-transposed kernel at pad ``k - 1 - padding``;
+    a negative pad becomes a crop of ``cot`` first."""
+    cot, pad = _input_grad_crop(cot, weight.shape[-1], padding)
+    return cot, weight.flip(2, 3).transpose(0, 1), pad
 
 
 def _check_kxk(x, weight, padding, stride):
@@ -441,8 +447,8 @@ def conv2d_input_grad(cot: torch.Tensor, weight: torch.Tensor, padding: int) -> 
         return conv2d_input_grad_plain(cot, weight, padding)
     if cot.dtype == torch.bfloat16:
         return _conv_input_grad_tc_kernel(cot, weight, padding)
-    cot, w_t, pad = _input_grad_conv(cot, weight, padding)
-    return _conv_kxk_kernel(cot, w_t, pad, 1)
+    cot, pad = _input_grad_crop(cot, weight.shape[-1], padding)
+    return _conv_kxk_kernel(cot, weight, pad, 1)
 
 
 def conv2d_input_grad_plain(cot, weight, padding):
@@ -471,13 +477,18 @@ def conv_transpose4x4s2_input_grad_plain(cot, weight):
 
 
 def _conv_kxk_kernel(x, weight, padding, stride):
+    """K2's CUDA-core K x K form at ``padding`` and ``stride``. Stride 1: the
+    input cotangent's conv, ``weight`` the forward conv's (cin, cout, k, k)
+    as stored, which the kernel reads flipped and in/out-transposed, so no
+    call copies it. Stride 2: ``x`` conv ``weight`` (cout, cin, 4, 4) as
+    OIHW (the transpose conv's weight as stored)."""
     kernels.no_graph("conv_kxk", x, weight)
-    ho, wo = _check_kxk(x, weight, padding, stride)
+    ho, wo = _check_kxk(x, weight.transpose(0, 1) if stride == 1 else weight, padding, stride)
     if x.dtype != torch.float32:
         raise TypeError(f"K2's CUDA-core k x k form takes float32 (bf16: conv_input_grad_tc, conv4x4s2_tc), "
                         f"got {x.dtype}")
     b, cin, h, w = x.shape
-    cout, k = weight.shape[0], weight.shape[-1]
+    cout, k = weight.shape[1 if stride == 1 else 0], weight.shape[-1]
     out = torch.empty((b, cout, ho, wo), device=x.device, dtype=x.dtype)
     ptrs, meta = kernels.part_args([x], [False])
     kernels.launch("conv_kxk" if stride == 1 else "conv4x4s2", "nct_conv_kxk", out, ptrs, meta,

@@ -1,0 +1,160 @@
+"""K6's f32 weight cotangent (``csrc/wgrad.cu``) and K2's f32 K x K form
+(``csrc/conv.cu``, ``convkxk_kernel``) run on the CPU under the host
+emulation of the CUDA launch model (``csrc/host_emu.h``).
+
+The two sources are compiled with ``g++ -x c++ -std=c++20 -include
+host_emu.h`` into a shared library, which takes the kernel library's place
+while the public wrappers run on CPU tensors as on the card: each launch
+goes through the real C entry, plan and kernel, its blocks one after
+another, each CUDA thread a fiber on one host thread, ``__syncthreads`` a
+barrier of the block's fibers, ``cp.async`` a synchronous copy with a zero
+fill, and the dynamic shared memory poisoned with NaN bytes before each
+block. Every plan branch is held
+to its plain version at 1e-5 rel RMSE at shapes of a few blocks: K6's tile
+shapes (M = 1, N < 45 at M <= 32 and above, M <= 32, M > 32 in tiles of 64
+and of 40), its three forms, multi-part operands, a channel-offset view,
+rows read as 16-byte vectors and not; the K x K form's tile shapes (up to
+8 and 16 channels, one to four slabs of 32, more in balanced groups, a
+small grid's narrower groups), K 1 / 3 / 5 at stride 1 with the forward
+weight read flipped, and 4x4 at stride 2. Skips only where g++ is absent.
+"""
+import contextlib
+import ctypes
+import shutil
+import subprocess
+from unittest import mock
+
+import pytest
+import torch
+
+from nconv_tpu_torch import kernels, ops
+from nconv_tpu_torch.ops import convops
+
+BAR = 1e-5  # f32 sums in another order than the plain versions
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels under the host emulation")
+    d = tmp_path_factory.mktemp("host_emu")
+    for stub in ("cuda_runtime.h", "cuda_bf16.h"):  # host_emu.h defines what the sources use of them
+        (d / stub).write_text("")
+    so = d / "emu.so"
+    objs = [d / f"{name}.o" for name in ("wgrad", "conv")]
+    builds = [subprocess.Popen([gxx, "-x", "c++", "-std=c++20", "-O1", "-fPIC", f"-I{d}", "-include",
+                                str(kernels.CSRC / "host_emu.h"), "-c", str(kernels.CSRC / f"{o.stem}.cu"),
+                                "-o", str(o)], stderr=subprocess.PIPE, text=True) for o in objs]
+    for b in builds:
+        assert b.wait() == 0, b.stderr.read()
+    subprocess.run([gxx, "-shared", *map(str, objs), "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in kernels._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    lib.nct_error_string.argtypes = [ctypes.c_int]
+    lib.nct_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def emulated_card(lib):
+    """The emulated library in the kernel library's place, and every CPU
+    tensor taken as on the card."""
+    with mock.patch.object(kernels, "_lib", lib), mock.patch.object(kernels, "lib", lambda: lib), \
+            mock.patch.object(kernels, "on_card", lambda *t: True), \
+            mock.patch.object(kernels, "device_guard", lambda t: contextlib.nullcontext()), \
+            mock.patch.object(kernels, "stream_of", lambda t: 0):
+        kernels.reset_launch_counts()
+        yield
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def _r(g, *s):
+    return torch.randn(*s, generator=g)
+
+
+# (k, stride, x channels by part, g channels by part, h, w): the K6 plan's
+# tile shapes and forms
+_WGRAD = [
+    (3, 1, (3, "view7"), (40,), 10, 40),   # M > 32: (8, 8); g rows as 16-byte vectors
+    (3, 2, (10,), (128,), 10, 40),         # two m blocks of 64
+    (3, 1, (10,), (1,), 9, 37),            # M = 1: (1, 1); ragged rows, element copies
+    (3, 1, (5, 6), (1, 31), 9, 37),        # M <= 32: (4, 8), both sides in parts
+    (3, 1, (3,), (64,), 9, 37),            # N < 45, M > 32: (16, 2), the RGB encoder's
+    (3, 2, (1,), (32,), 12, 40),           # N < 45, M <= 32: (16, 2)
+    (4, 2, (16,), (1, 8), 8, 18),          # the transpose conv's, roles swapped
+    (4, 2, (8,), (1, 32), 8, 18),          # its M = 33
+]
+
+
+@pytest.mark.parametrize("k,stride,xc,gc,h,w", _WGRAD)
+def test_wgrad_kernel_under_emulation_matches_plain_version(emu, k, stride, xc, gc, h, w):
+    g = torch.Generator().manual_seed(100 * k + 10 * stride + sum(gc))
+    b = 2
+    xs = [_r(g, b, 9, h, w)[:, 2:] if c == "view7" else _r(g, b, c, h, w) for c in xc]
+    if k == 4:  # x is the transpose conv's output cotangent, g its input
+        ho, wo = h // 2, w // 2
+    else:
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    gs = [_r(g, b, c, ho, wo) for c in gc]
+    with emulated_card(emu):
+        got = ops.conv2d_wgrad(xs, gs, k, stride=stride, padding=1)
+        again = ops.conv2d_wgrad(xs, gs, k, stride=stride, padding=1)
+        assert kernels.launch_counts()["wgrad"] == 2
+    want = convops.conv2d_weight_grad_plain(xs, gs, k, 1, stride=stride)
+    assert got.shape == want.shape and _rel(got, want) <= BAR
+    assert torch.equal(got, again)  # a fixed summation order
+
+
+# (k, stride, pad, cin, cout, b, h, w): the K x K plan's tile shapes; at
+# stride 1 through conv2d_input_grad (the forward weight read flipped). At
+# 130 rows of two 32-pixel column tiles and B = 2 a grid has 68 blocks a
+# channel group, enough that the plan keeps its groups whole.
+_KXK = [
+    (3, 1, 1, 8, 8, 2, 130, 37),    # D
+    (5, 1, 2, 8, 16, 2, 130, 20),   # C, one slab; step 1's 5x5
+    (1, 1, 0, 16, 8, 2, 130, 33),   # D at 1x1
+    (3, 1, 0, 16, 32, 2, 130, 37),  # B; the forward conv had pad 0
+    (3, 1, 1, 16, 40, 2, 130, 35),  # B, two slabs
+    (3, 1, 1, 1, 64, 2, 130, 37),   # B, two slabs, from a 1-channel cotangent
+    (3, 1, 1, 8, 128, 2, 130, 33),  # B, four slabs
+    (3, 1, 1, 9, 131, 2, 130, 20),  # two balanced groups of 66, B in three slabs
+    (3, 1, 1, 16, 64, 1, 9, 37),    # a small grid: four groups of 16
+]
+
+
+@pytest.mark.parametrize("k,stride,pad,cin,cout,b,h,w", _KXK)
+def test_stride1_input_grad_under_emulation_matches_plain_version(emu, k, stride, pad, cin, cout, b, h, w):
+    """``cin`` and ``cout`` are the K x K conv's: the forward conv maps
+    ``cout`` channels to ``cin``, so its weight is (cin, cout, k, k)."""
+    g = torch.Generator().manual_seed(100 + k + cin + cout)
+    ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+    cot = _r(g, b, cin, ho, wo)
+    wf = _r(g, cin, cout, k, k)
+    with emulated_card(emu):
+        got = ops.conv2d_input_grad(cot, wf, pad)
+        assert kernels.launch_counts()["conv_kxk"] == 1
+    want = ops.conv2d_input_grad_plain(cot, wf, pad)
+    assert got.shape == want.shape == (b, cout, h, w) and _rel(got, want) <= BAR
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [(8, 33, 130, 37), (8, 65, 130, 20), (8, 9, 130, 33), (16, 65, 4, 20)])
+def test_4x4s2_input_grad_under_emulation_matches_plain_version(emu, cin, cout, h, w):
+    """The transpose conv's weight (cout, cin, 4, 4) read as OIHW: 33 in one
+    48-channel slab (E), 65 in two groups of 33, 9 in a 16-channel slab (C),
+    and 65 on a small grid in five groups of 13."""
+    g = torch.Generator().manual_seed(200 + cout)
+    up = _r(g, 2, cin, 2 * h, 2 * w)[:, :, :, 1:]  # a strided view: odd width, ragged edge
+    wt = _r(g, cout, cin, 4, 4)
+    with emulated_card(emu):
+        got = ops.conv_transpose4x4s2_input_grad(up, wt)
+        assert kernels.launch_counts()["conv4x4s2"] == 1
+    want = ops.conv_transpose4x4s2_input_grad_plain(up, wt)
+    assert got.shape == want.shape and _rel(got, want) <= BAR

@@ -106,7 +106,7 @@ def test_input_grad_forms_refuse_what_they_cannot_take():
         for bad, err in (
             (lambda: convops._conv_input_grad_tc_kernel(cot.float(), w3.float(), 1), TypeError),  # f32: conv_kxk
             (lambda: convops._conv4x4s2_tc_kernel(up.float(), w4.float()), TypeError),  # f32: conv4x4s2
-            (lambda: convops._conv_kxk_kernel(cot, bf(64, 32, 3, 3), 1, 1), TypeError),  # bf16: the tc form
+            (lambda: convops._conv_kxk_kernel(cot, bf(32, 64, 3, 3), 1, 1), TypeError),  # bf16: the tc form
             (lambda: convops._conv_kxk_kernel(up, w4, 1, 2), TypeError),  # bf16: the tc form
             (lambda: convops._conv_input_grad_tc_kernel(cot, w3, 0), ValueError),  # not a pad-1 conv's
             (lambda: convops._conv_input_grad_tc_kernel(cot, bf(32, 129, 3, 3), 1), ValueError),  # > 128 out
