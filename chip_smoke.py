@@ -16,7 +16,7 @@ Phases (any failure raises and the script exits non-zero):
      ``conv_chain_tc``), random inputs from seeded generators, with kernel /
      plain / library times from CUDA events (median of 20); beside each bf16
      chain, two cuDNN bf16 convs and two ``conv_tc`` launches on the same
-     shapes;
+     shapes, beside each f32 chain two cuDNN f32 convs;
   3. the main path: ``StreamingEngine`` with random-init weights carried
      through BN folding, in f32 and in the mixed schedule, answering
      two-stream requests of synthetic frames; outputs must be finite, zero
@@ -162,8 +162,9 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "wgrad": ("nconv_tpu_torch/csrc/wgrad.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
     "wgrad_tc": ("nconv_tpu_torch/csrc/wgrad_tc.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
 }
-# timed beside each bf16 chain: two cuDNN bf16 convs, two conv_tc launches
-YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms")
+# timed beside each bf16 chain: two cuDNN bf16 convs, two conv_tc launches;
+# beside each f32 chain: two cuDNN f32 convs
+YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms", "two_cudnn_f32_ms")
 TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
 GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per f32 guided train step
 # per bf16 guided train step: the tensor-core backward forms, which only the
@@ -570,6 +571,9 @@ def check_call(key, g):
         cin, cmid, cout = w1sig[0][1], w1sig[0][0], w2sig[0][0]
         macs_per_out = 9 * (cmid * cin + cout * cmid) / cout
         inputs = [x, w1, b1, w2, b2]
+        # the yardstick: two cuDNN f32 convs (TF32 off, as main() sets)
+        yardsticks = {"two_cudnn_f32_ms": lambda: torch.relu(F.conv2d(torch.relu(F.conv2d(x, w1, b1, padding=1)), w2,
+                                                                      b2, padding=1))}
 
     k_out, p_out = kern(), plain()
     torch.cuda.synchronize()
@@ -1112,12 +1116,13 @@ def main() -> int:
                 failures.append((key, res["err"]))
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")
-    for kname in ("conv_thin", "conv_chain_tc"):  # the mixed frame's sums beside their yardsticks
-        mine = [(k, r) for k, r in results.items() if k[0] == kname and k in rec["mixed"]]
-        tot = {f: sum(r[f] * rec["mixed"][k] for k, r in mine)
+    # per-frame sums beside their yardsticks
+    for kname, sched in (("conv_thin", "mixed"), ("conv_chain_tc", "mixed"), ("conv_chain", "f32")):
+        mine = [(k, r) for k, r in results.items() if k[0] == kname and k in rec[sched]]
+        tot = {f: sum(r[f] * rec[sched][k] for k, r in mine)
                for f in ("ms", "plain_ms", "bound_ms", "library_ms", *YARDSTICKS) if all(f in r and r[f] is not None
                                                                                          for _, r in mine)}
-        log(f"per mixed frame {kname}: " + ", ".join(f"{f} {v:.4f}" for f, v in tot.items())
+        log(f"per {sched} frame {kname}: " + ", ".join(f"{f} {v:.4f}" for f, v in tot.items())
             + f"; share of bound {tot['bound_ms'] / tot['ms']:.1%}")
 
     # -- 3. the main path: two-stream requests through StreamingEngine

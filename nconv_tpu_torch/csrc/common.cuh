@@ -186,6 +186,12 @@ inline void fill_parts(Part* dst, const void* const* ptrs,
   }
 }
 
+// Host side: the stride of a staged [channel x tap][output channel] weight
+// row of n floats. The copies that transpose the weights into it write a
+// channel's taps n floats apart: at n a multiple of 32 all on one bank, so
+// such a row is 4 floats longer (still 16-byte aligned for float4 reads).
+inline int padded_row(int n) { return n % 32 ? n : n + 4; }
+
 // Host side: whether a part's rows of BYTES-byte elements may be read as
 // aligned 16-byte vectors.
 template <int BYTES>

@@ -22,8 +22,10 @@
 // pixel in registers.
 //
 // Below, a second form: the 3x3/s2/p1 transposed conv with output_padding 1
-// (no bias, f32; bf16 runs on the tensor cores, conv_tc.cu), the input gradient of a 3x3 stride-2
-// conv (nct_conv_transpose3x3s2).
+// (no bias, f32; bf16 runs on the tensor cores, conv_tc.cu), the input
+// gradient of a 3x3 stride-2 conv (nct_conv_transpose3x3s2): 2x2 output
+// quads over all output channels a block, g and its weights staged by
+// cp.async two stages deep (nct::t3).
 #include "common.cuh"
 
 namespace nct {
@@ -133,92 +135,208 @@ static int dispatch_cot(const ConvTArgs& a, cudaStream_t st) {
 // the input cotangent (B, cout, 2h, 2w) of a 3x3 stride-2 pad-1 conv from
 // its output cotangent g (B, cin, h, w). Replaces the d2s_channels form of
 // nconv_tpu/ops/pallas_conv.py:_kernel that pallas_s2._s2_res_bwd
-// (:123-136) runs on phase-stacked output channels. Here each thread owns
-// the 2x2 output quad of one input pixel (i, j), whose four outputs take 1,
-// 2, 2 and 4 taps, the nine taps of the kernel once each:
+// (:115-136) runs on phase-stacked output channels. The 2x2 output quad of
+// input pixel (i, j) takes 1, 2, 2 and 4 taps, the nine taps of the kernel
+// once each:
 //
 //   (2i,   2j)   <- g[i, j] w11
 //   (2i,   2j+1) <- g[i, j] w12 + g[i, j+1] w10
 //   (2i+1, 2j)   <- g[i, j] w21 + g[i+1, j] w01
 //   (2i+1, 2j+1) <- g[i, j] w22 + g[i, j+1] w20 + g[i+1, j] w02 + g[i+1, j+1] w00
 //
-// so no thread skips a tap and no warp diverges on the output parity. A
-// block stages a (TH+1) x (TW+1) tile of g for Q_CIC channels and their
-// weights in shared memory and keeps 4 x COT outputs in registers. Bound:
-// 9 * cout FMAs per input value read, f32 CUDA cores.
+// so no thread skips a tap and no warp diverges on the output parity.
+//
+// Bound on the H100: operations (9 x cout FMAs per g value, f32 CUDA cores).
+// Design, output-stationary over all output channels:
+//  * A block covers R rows x 32 columns of g (2R x 64 outputs) and all
+//    output channels up to 64 (wider calls in balanced groups), so g is
+//    staged once a call: warp (g row, slab of 16 channels), lane (pair of
+//    quads, group of 8 channels). A thread holds PX = 2 consecutive quads x
+//    CO = 8 channels: per input channel it loads 2 (PX + 1) g values and 9
+//    weight rows of 8 as float4 broadcasts for 9 PX CO = 144 FMAs.
+//  * g rows in chunks of 8 channels and their weights, as [cc * 9 + tap][co]
+//    rows (common.cuh padded_row), staged by cp.async (16-byte copies where
+//    g's rows allow) two stages deep: chunk c + 1's copies fly while chunk
+//    c's FMAs run.
+//  * Each thread writes its 2 PX = 4 contiguous outputs of a row as one
+//    float4.
+// A split of the 44x152 call's channels into more, smaller blocks, 4 x 4
+// quad tiles, 16-channel chunks and 16-warp blocks all lost to this plan
+// (runtime/plan_probe.py; PERF.md).
 // ---------------------------------------------------------------------------
 
-constexpr int Q_TW = 32, Q_TH = 8, Q_CIC = 16, Q_COT = 16, Q_THREADS = Q_TW * Q_TH;
+namespace t3 {
 
-struct ConvT3Args {
-  Part x;  // (B, cin, h, w), any strides
+constexpr int QW = 32, PX = 2, CO = 8, PGW = QW / PX, CGW = 32 / PGW, SLAB = CGW * CO, CIC = 8, MOST = 64,
+              MAX_WARPS = 8;
+constexpr int GS = 36;  // a staged g row: the tile's 33 columns, in whole 16-byte vectors
+
+struct Args {
+  Part g;   // (B, cin, h, w), any strides
+  int vec;  // g's rows staged as 16-byte vectors
   int B, h, w, cin, cout;
-  const float* wt;  // (cin, cout, 3, 3)
-  float* out;       // (B, cout, 2h, 2w), contiguous
+  int width, wst, ns, rows;  // output channels a group, a staged weight row (slabs x 16, padded_row), slabs, g rows a block
+  const float* wt;           // (cin, cout, 3, 3)
+  float* out;                // (B, cout, 2h, 2w), contiguous
 };
 
-__global__ void __launch_bounds__(Q_THREADS) convt3x3s2_kernel(const ConvT3Args a) {
-  __shared__ float xs[Q_CIC][Q_TH + 1][Q_TW + 1];
-  __shared__ __align__(16) float ws[Q_CIC * 9][Q_COT];
+// one stage: the g patch of CIC channels, then CIC x 9 weight rows
+__host__ __device__ constexpr int gsz(int rows) { return CIC * (rows + 1) * GS; }
+__host__ __device__ constexpr int stage_size(int rows, int wst) { return gsz(rows) + CIC * 9 * wst; }
 
-  const int groups = (a.cout + Q_COT - 1) / Q_COT;
-  const int b = blockIdx.z / groups, co0 = (blockIdx.z % groups) * Q_COT;
-  const int tx = threadIdx.x % Q_TW, ty = threadIdx.x / Q_TW;
-  const int i0 = blockIdx.y * Q_TH, j0 = blockIdx.x * Q_TW;
-  const int i = i0 + ty, j = j0 + tx;
+__global__ void __launch_bounds__(32 * MAX_WARPS) convt3x3s2_kernel(const Args a) {
+  NCT_DYN_SHARED(float, smem);
+  const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slab = warp % a.ns, row = warp / a.ns, pg = lane % PGW, cg = lane / PGW;
+  const int groups = (a.cout + a.width - 1) / a.width;
+  const int b = blockIdx.z / groups, co0 = (blockIdx.z % groups) * a.width;
+  const int co_end = co0 + a.width < a.cout ? co0 + a.width : a.cout;
+  const int i0 = blockIdx.y * a.rows, j0 = blockIdx.x * QW, gr = a.rows + 1;
+  const int stage_sz = stage_size(a.rows, a.wst);
 
-  float acc[4][Q_COT];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int c = 0; c < Q_COT; ++c) acc[q][c] = 0.f;
-
-  for (int c0 = 0; c0 < a.cin; c0 += Q_CIC) {
-    __syncthreads();
-    for (int t = threadIdx.x; t < Q_CIC * (Q_TH + 1) * (Q_TW + 1); t += Q_THREADS) {
-      const int cc = t / ((Q_TH + 1) * (Q_TW + 1)), r = t % ((Q_TH + 1) * (Q_TW + 1));
-      const int yy = r / (Q_TW + 1), xx = r % (Q_TW + 1), c = c0 + cc;
-      xs[cc][yy][xx] = c < a.cin ? load_parts<float>(&a.x, 1, b, c, i0 + yy, j0 + xx, a.h, a.w)
-                                 : 0.f;
+  // input channels c0 .. c0 + CIC - 1 (up to cin) into stage buf
+  auto stage = [&](int c0, int buf) {
+    float* gs = smem + buf * stage_sz;
+    float* ws = gs + gsz(a.rows);
+    const int ncc = a.cin - c0 < CIC ? a.cin - c0 : CIC;
+    const float* g = static_cast<const float*>(a.g.ptr);
+    for (int u = warp; u < ncc * gr; u += nthr / 32) {
+      const int c = c0 + u / gr, i = i0 + u % gr;
+      const bool live = i < a.h;
+      const float* src = g + (live ? b * a.g.sb + c * a.g.sc + i * a.g.sh : 0);
+      float* drow = gs + u * GS;
+      if (a.vec) {  // whole vectors, in or out of the image (w % 4 == 0)
+        for (int v = lane; v < GS / 4; v += 32) {
+          const int j = j0 + 4 * v;
+          const bool in = live && j < a.w;
+          cp_async16(smem_u32(drow + 4 * v), in ? src + j : src, in ? 16 : 0);
+        }
+      } else {
+        for (int x = lane; x <= QW; x += 32) {
+          const int j = j0 + x;
+          const bool in = live && j < a.w;
+          cp_async4(smem_u32(drow + x), in ? src + j * a.g.sw : src, in ? 4 : 0);
+        }
+      }
     }
-    for (int t = threadIdx.x; t < Q_CIC * 9 * Q_COT; t += Q_THREADS) {
-      const int jj = t % Q_COT, u = t / Q_COT, cc = u / 9, k = u % 9;
-      const int co = co0 + jj, c = c0 + cc;
-      ws[u][jj] = (co < a.cout && c < a.cin) ? a.wt[((long long)c * a.cout + co) * 9 + k] : 0.f;
+    // w[c][co][tap]: an input channel's group of width x 9 is contiguous
+    for (int cc = 0; cc < ncc; ++cc) {
+      const float* wc = a.wt + (static_cast<long long>(c0 + cc) * a.cout + co0) * 9;
+      for (int i = tid; i < a.wst * 9; i += nthr) {
+        const int j = i / 9, t = i % 9;
+        const bool in = co0 + j < co_end;
+        cp_async4(smem_u32(ws + (cc * 9 + t) * a.wst + j), in ? wc + i : a.wt, in ? 4 : 0);
+      }
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int cc = 0; cc < Q_CIC; ++cc) {
-      const float v00 = xs[cc][ty][tx], v01 = xs[cc][ty][tx + 1];
-      const float v10 = xs[cc][ty + 1][tx], v11 = xs[cc][ty + 1][tx + 1];
-      const float* wk = ws[cc * 9];  // tap k = ky * 3 + kx at wk[k * Q_COT + c]
+  };
+
+  float acc[2][2][PX][CO];  // [output row parity][output column parity][quad][channel]
 #pragma unroll
-      for (int c = 0; c < Q_COT; ++c) {
-        const float w00 = wk[0 * Q_COT + c], w01 = wk[1 * Q_COT + c], w02 = wk[2 * Q_COT + c];
-        const float w10 = wk[3 * Q_COT + c], w11 = wk[4 * Q_COT + c], w12 = wk[5 * Q_COT + c];
-        const float w20 = wk[6 * Q_COT + c], w21 = wk[7 * Q_COT + c], w22 = wk[8 * Q_COT + c];
-        acc[0][c] = fmaf(v00, w11, acc[0][c]);
-        acc[1][c] = fmaf(v01, w10, fmaf(v00, w12, acc[1][c]));
-        acc[2][c] = fmaf(v10, w01, fmaf(v00, w21, acc[2][c]));
-        acc[3][c] = fmaf(v11, w00, fmaf(v10, w02, fmaf(v01, w20, fmaf(v00, w22, acc[3][c]))));
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int q = 0; q < PX; ++q)
+#pragma unroll
+        for (int k = 0; k < CO; ++k) acc[p][s][q][k] = 0.f;
+
+  const int wcol = slab * SLAB + cg * CO;  // the thread's first channel in a weight row
+  stage(0, 0);
+  cp_async_commit();
+  for (int c0 = 0; c0 < a.cin; c0 += CIC) {
+    const int buf = (c0 / CIC) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c0 staged; every warp is done with the previous chunk's stage
+    if (c0 + CIC < a.cin) {
+      stage(c0 + CIC, buf ^ 1);
+      cp_async_commit();
+    }
+    const float* gs = smem + buf * stage_sz + row * GS + PX * pg;
+    const float* ws = smem + buf * stage_sz + gsz(a.rows) + wcol;
+    const int ncc = a.cin - c0 < CIC ? a.cin - c0 : CIC;
+#pragma unroll 1
+    for (int cc = 0; cc < ncc; ++cc) {
+      float v[2][PX + 1];  // g rows i, i + 1 at columns j .. j + PX
+#pragma unroll
+      for (int d = 0; d < 2; ++d)
+#pragma unroll
+        for (int e = 0; e <= PX; ++e) v[d][e] = gs[(cc * gr + d) * GS + e];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        // tap (ky, kx) feeds output (2i + py, 2j + px) from g[i + di][j + dj]:
+        // py = 0 at ky = 1, else 1; di = 1 at ky = 0, else 0 (columns alike)
+        const int ky = t / 3, kx = t % 3, py = ky != 1, px = kx != 1, di = ky == 0, dj = kx == 0;
+        const float4* wr = reinterpret_cast<const float4*>(ws + (cc * 9 + t) * a.wst);
+        float wv[CO];
+#pragma unroll
+        for (int k = 0; k < CO / 4; ++k) {
+          const float4 w4 = wr[k];
+          wv[4 * k] = w4.x, wv[4 * k + 1] = w4.y, wv[4 * k + 2] = w4.z, wv[4 * k + 3] = w4.w;
+        }
+#pragma unroll
+        for (int q = 0; q < PX; ++q)
+#pragma unroll
+          for (int k = 0; k < CO; ++k) acc[py][px][q][k] = fmaf(v[di][q + dj], wv[k], acc[py][px][q][k]);
       }
     }
   }
 
+  const int i = i0 + row, j = j0 + PX * pg;
   if (i >= a.h || j >= a.w) return;
   const int ho = 2 * a.h, wo = 2 * a.w;
+  const bool vec_out = (wo & 3) == 0 && j + PX <= a.w;  // whole float4s
 #pragma unroll
-  for (int c = 0; c < Q_COT; ++c) {
-    const int co = co0 + c;
-    if (co < a.cout) {
-      float* o = a.out + (((long long)b * a.cout + co) * ho + 2 * i) * wo + 2 * j;
-      o[0] = acc[0][c];
-      o[1] = acc[1][c];
-      o[wo] = acc[2][c];
-      o[wo + 1] = acc[3][c];
+  for (int k = 0; k < CO; ++k) {
+    const int co = co0 + wcol + k;
+    if (co >= co_end) break;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float* o = a.out + ((static_cast<long long>(b) * a.cout + co) * ho + 2 * i + p) * wo + 2 * j;
+      if (vec_out) {
+#pragma unroll
+        for (int q = 0; q < PX; q += 2)
+          *reinterpret_cast<float4*>(o + 2 * q) =
+              float4{acc[p][0][q][k], acc[p][1][q][k], acc[p][0][q + 1][k], acc[p][1][q + 1][k]};
+      } else {
+#pragma unroll
+        for (int q = 0; q < PX; ++q)
+          if (j + q < a.w) o[2 * q] = acc[p][0][q][k], o[2 * q + 1] = acc[p][1][q][k];
+      }
     }
   }
 }
+
+// The launch plan: groups of width output channels, ns slabs of 16 a group,
+// rows g rows a block (ns x rows warps).
+struct Plan {
+  int width, ns, rows;
+};
+
+inline Plan plan_of(int cout, int groups, int rows) {
+  const int width = (cout + groups - 1) / groups;
+  return {width, (width + SLAB - 1) / SLAB, rows};
+}
+
+// Balanced groups of at most 64 channels, 8 warps a block.
+inline Plan plan(int cout) {
+  const int groups = (cout + MOST - 1) / MOST;
+  return plan_of(cout, groups, MAX_WARPS / plan_of(cout, groups, 0).ns);
+}
+
+inline int run(Args& a, const Plan& p, cudaStream_t st) {
+  if (p.rows < 1 || p.ns * p.rows > MAX_WARPS) return static_cast<int>(cudaErrorInvalidValue);
+  a.width = p.width, a.ns = p.ns, a.rows = p.rows, a.wst = padded_row(p.ns * SLAB);
+  const int threads = 32 * p.ns * p.rows;
+  const size_t smem = 2 * sizeof(float) * stage_size(a.rows, a.wst);
+  void (*k)(const Args) = convt3x3s2_kernel;
+  int resident = 0;  // sets the kernel's shared-memory limit on this device
+  if (const int e = resident_blocks(k, threads, smem, resident)) return e;
+  const dim3 grid((a.w + QW - 1) / QW, (a.h + a.rows - 1) / a.rows, a.B * ((a.cout + a.width - 1) / a.width));
+  NCT_LAUNCH(k, grid, dim3(threads), smem, st, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace t3
 
 }  // namespace nct
 
@@ -243,9 +361,10 @@ extern "C" int nct_conv_transpose4x4s2(const void* const* part_ptrs,
   return static_cast<int>(cudaErrorInvalidValue);  // bf16: conv_tc.cu
 }
 
-// Plain C entry of the 3x3/s2 form: one input part (B, cin, h, w) (see
-// nct::fill_parts) of storage type dtype, which must be F32 (bf16: mode 3 of
-// nct_conv_tc), as the output (B, cout, 2h, 2w); weight (cin, cout, 3, 3) f32.
+// Plain C entry of the 3x3/s2 form (nct::t3): one input part (B, cin, h, w)
+// (see nct::fill_parts) of storage type dtype, which must be F32 (bf16: mode
+// 3 of nct_conv_tc), as the output (B, cout, 2h, 2w); weight (cin, cout, 3,
+// 3) f32.
 extern "C" int nct_conv_transpose3x3s2(const void* const* x_ptr,
                                        const long long* x_meta, int dtype,
                                        int B, int h, int w, int cin, int cout,
@@ -254,12 +373,9 @@ extern "C" int nct_conv_transpose3x3s2(const void* const* x_ptr,
   using namespace nct;
   if (B < 1 || h < 1 || w < 1 || cin < 1 || cout < 1 || dtype != F32)
     return static_cast<int>(cudaErrorInvalidValue);
-  ConvT3Args a{};
-  fill_parts(&a.x, x_ptr, x_meta, 1);
+  t3::Args a{};
+  fill_parts(&a.g, x_ptr, x_meta, 1);
+  a.vec = w % 4 == 0 && vec_rows<4>(a.g);
   a.B = B, a.h = h, a.w = w, a.cin = cin, a.cout = cout, a.wt = wt, a.out = static_cast<float*>(out);
-  const dim3 grid((w + Q_TW - 1) / Q_TW, (h + Q_TH - 1) / Q_TH,
-                  B * ((cout + Q_COT - 1) / Q_COT));
-  void (*k)(const ConvT3Args) = convt3x3s2_kernel;
-  NCT_LAUNCH(k, grid, dim3(Q_THREADS), 0, static_cast<cudaStream_t>(stream), a);
-  return static_cast<int>(cudaGetLastError());
+  return t3::run(a, t3::plan(cout), static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,7 @@
 // directory compile with a C++20 host compiler and run on the CPU:
 //
 //   g++ -x c++ -std=c++20 -O1 -shared -fPIC -I <dir of empty cuda_runtime.h
-//       and cuda_bf16.h> -include host_emu.h wgrad.cu conv.cu -o emu.so
+//       and cuda_bf16.h> -include host_emu.h wgrad.cu conv.cu convt.cu -o emu.so
 //
 // The tests use it (tests/test_torch_host_emu.py) to hold the f32 CUDA-core
 // kernels to their plain versions without a card; nvcc never includes it and

@@ -13,8 +13,11 @@ Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
     at stride 1 from uint8 parts (the mixed schedule's frame encoder) or
     from bf16 parts with cout < 8 (its depth heads) on the thin CUDA-core
     form (``csrc/conv_thin.cu``, counter ``conv_thin``); every other call
-    (f32, and stride 2 below 8 channels) on the CUDA cores
-    (``csrc/conv.cu``, counter ``conv``);
+    on the CUDA cores (``csrc/conv.cu``, counter ``conv``): f32 parts and
+    uint8 parts with an f32 output on the output-stationary kernel that the
+    K x K backward form shares (all output channels a block, channel chunks
+    staged by ``cp.async`` two deep, a cout-1 tile for the heads), the
+    bf16 forms no recorded path reaches on a simple template;
   * :func:`conv_transpose4x4s2` — K3: 4x4/s2/p1 transpose conv + bias +
     ReLU over parts; bf16 on the tensor cores (``csrc/conv_tc.cu``,
     ``conv_transpose_tc``), f32 on the CUDA cores (``csrc/convt.cu``,
@@ -37,7 +40,8 @@ schedule except K5):
     stride-1 convs on K5 (``csrc/filtergrad.cu``);
   * :func:`conv3x3s2_input_grad` — the input cotangent of a 3x3 stride-2
     conv, a 3x3/s2 transposed conv: f32 on K3's 3x3/s2 form
-    (``csrc/convt.cu``, counter ``conv_transpose3x3s2``), bf16 on the
+    (``csrc/convt.cu``, counter ``conv_transpose3x3s2``: 2x2 output quads
+    over all output channels a block, staged two deep), bf16 on the
     tensor cores (mode 3 of ``csrc/conv_tc.cu``, counter
     ``conv_transpose3x3s2_tc``);
   * :func:`conv_transpose4x4s2_input_grad` — the input cotangent of the

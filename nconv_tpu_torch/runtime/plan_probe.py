@@ -1,20 +1,23 @@
-"""Time each launch-plan branch of the f32 backward's two CUDA-core kernels
-against the tiles it displaces, on the card, at the main path's calls.
+"""Time each launch-plan branch of the f32 CUDA-core kernels against the
+tiles it displaces, on the card, at the main path's calls.
 
     python -m nconv_tpu_torch.runtime.plan_probe [--rounds 5] [--reps 20]
 
 K6's f32 form (``csrc/wgrad.cu``) picks a tile shape (MG, MR) by (M, N);
-K2's f32 K x K form (``convkxk_kernel`` of ``csrc/conv.cu``) picks channel
-groups (a small grid splits them) and a tile B-E by group width. This
-script drives one f32 guided train step (B = 1) and one step-1 train step
-(B = 4) at KITTI 352x1216 and records every call of the two kernels. Then,
-for each distinct call, it launches each tile the kernel has (and, for the
-K x K form, the unsplit groups) through a probe library that includes the
-two sources unchanged and exports their ``run`` with a given plan, checks
-each against the plain version (1e-5 rel RMSE), and times them with CUDA
-events: ``rounds`` rounds of ``reps`` launches each, the candidates in a
-rotating order, reporting the median round and the spread (max - min) of
-the rounds.
+K2's output-stationary kernel (``convkxk_kernel`` of ``csrc/conv.cu``), in
+its backward K x K form and its forward (plain and residual), picks channel
+groups (a small grid splits them) and a tile (B-F, H, P) by group width,
+form and stride; K3's f32 3x3/s2 form (``csrc/convt.cu``) is timed against
+its groups split in two. This script drives one f32 guided train step
+(B = 1), one step-1 train step (B = 4) and one f32 two-stream frame at
+KITTI 352x1216 and records every call of the four. Then, for each
+distinct call, it launches each tile the kernel has (and the unsplit
+groups) through a probe library that includes the sources unchanged and
+exports their ``run`` with a given plan, checks each against the plain
+version (1e-5 rel RMSE), and times
+them with CUDA events: ``rounds`` rounds of ``reps`` launches each, the
+candidates in a rotating order, reporting the median round and the spread
+(max - min) of the rounds.
 
 Prints a line per call and, per plan branch, the sums over the calls that
 take it (times their count per step) of the plan's time and of each
@@ -34,7 +37,7 @@ import torch
 
 from .. import kernels
 from ..ops import convops
-from .profile import _train_step
+from .profile import _request, _train_step
 
 # The probe's own entries: the sources' launch code with a plan given.
 _WGRAD_PROBE = r"""
@@ -65,10 +68,15 @@ extern "C" int probe_wgrad(const void* const* g_ptrs, const long long* g_meta, i
 
 _KXK_PROBE = r"""
 #include "conv.cu"
-extern "C" int probe_kxk_groups(int B, int ho, int wo, int cout, int stride) {
-  return nct::kxk::groups_of(B, ho, wo, cout, stride);
+extern "C" int probe_kxk_plan(int B, int ho, int wo, int cout, int stride, int form) {
+  const nct::kxk::Plan p = nct::kxk::plan(B, ho, wo, cout, stride, form);
+  return 256 * ((cout + p.width - 1) / p.width) + p.tile;
 }
-extern "C" int probe_kxk_tile(int width, int stride) { return nct::kxk::tile_of(width, stride); }
+extern "C" int probe_kxk_whole(int cout, int stride, int form) {
+  const int most = nct::kxk::most_of(form, stride);
+  return (cout + most - 1) / most;
+}
+extern "C" int probe_kxk_tile(int width, int stride, int form) { return nct::kxk::tile_of(width, stride, form); }
 extern "C" int probe_kxk_rows(int cout, int groups, int tile) {
   return nct::kxk::plan_of(cout, groups, static_cast<char>(tile)).rows;
 }
@@ -77,11 +85,41 @@ extern "C" int probe_kxk(const void* const* x_ptr, const long long* x_meta, int 
                          int groups, int tile, void* stream) {
   using namespace nct;
   kxk::Args a{};
-  fill_parts(&a.x, x_ptr, x_meta, 1);
+  fill_parts(a.parts, x_ptr, x_meta, 1);
+  a.nparts = 1, a.vec = stride == 1 && W % 4 == 0 && vec_rows<4>(a.parts[0]);
   a.B = B, a.H = H, a.W = W, a.cin = cin, a.ho = ho, a.wo = wo;
   a.cout = cout, a.pad = pad, a.w = w, a.out = static_cast<float*>(out);
-  return kxk::run(a, kxk::plan_of(cout, groups, static_cast<char>(tile)), ksize, stride,
+  return kxk::run(a, kxk::plan_of(cout, groups, static_cast<char>(tile)), kxk::GRAD, ksize, stride,
                   static_cast<cudaStream_t>(stream));
+}
+extern "C" int probe_conv3x3(const void* const* part_ptrs, const long long* part_meta, int nparts, int u8, int B,
+                             int H, int W, int cin, int ho, int wo, int cout, int stride, const float* w,
+                             const float* wsc, const float* bias, void* out, int relu, int groups, int tile,
+                             void* stream) {
+  using namespace nct;
+  kxk::Args a{};
+  if (!kxk::forward_args(a, part_ptrs, part_meta, nparts, u8, B, H, W, cin, ho, wo, cout, stride, w, wsc, bias,
+                         out, relu))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return kxk::run(a, kxk::plan_of(cout, groups, static_cast<char>(tile)), wsc ? kxk::FWD_RES : kxk::FWD, 3,
+                  stride, static_cast<cudaStream_t>(stream));
+}
+"""
+
+_T3_PROBE = r"""
+#include "convt.cu"
+extern "C" int probe_t3_plan(int B, int h, int w, int cout) {
+  const nct::t3::Plan p = nct::t3::plan(cout);
+  return 256 * ((cout + p.width - 1) / p.width) + p.rows;
+}
+extern "C" int probe_t3(const void* const* x_ptr, const long long* x_meta, int B, int h, int w, int cin, int cout,
+                        const float* wt, void* out, int groups, int rows, void* stream) {
+  using namespace nct;
+  t3::Args a{};
+  fill_parts(&a.g, x_ptr, x_meta, 1);
+  a.vec = w % 4 == 0 && vec_rows<4>(a.g);
+  a.B = B, a.h = h, a.w = w, a.cin = cin, a.cout = cout, a.wt = wt, a.out = static_cast<float*>(out);
+  return t3::run(a, t3::plan_of(cout, groups, rows), static_cast<cudaStream_t>(stream));
 }
 """
 
@@ -90,13 +128,20 @@ _PROBE_SIGNATURES = {
     "probe_wgrad_tile": [I, I],
     "probe_wgrad_slices": [I, I, I, I, I, I, I],
     "probe_wgrad": [P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, I, I, P],
-    "probe_kxk_groups": [I, I, I, I, I],
-    "probe_kxk_tile": [I, I],
+    "probe_kxk_plan": [I, I, I, I, I, I],
+    "probe_kxk_whole": [I, I, I],
+    "probe_kxk_tile": [I, I, I],
     "probe_kxk_rows": [I, I, I],
     "probe_kxk": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, I, I, P],
+    "probe_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, I, I, P],
+    "probe_t3_plan": [I, I, I, I],
+    "probe_t3": [P, P, I, I, I, I, I, P, P, I, I, P],
 }
 WGRAD_TILES = [(8, 8), (8, 5), (4, 8), (1, 1), (16, 2)]
-KXK_TILES = {1: "BCD", 2: "CE"}
+GRAD, FWD, FWD_RES = 0, 1, 2  # conv.cu's kxk::Form
+# the tiles each form of the output-stationary kernel is built with, by stride
+KXK_TILES = {(GRAD, 1): "BCDP", (GRAD, 2): "CE", (FWD, 1): "BCDHP", (FWD, 2): "BCDF", (FWD_RES, 1): "BCD",
+             (FWD_RES, 2): "BCD"}
 BAR = 1e-5
 NO_FIT = 9  # cudaErrorInvalidConfiguration: the tile's stages exceed a block's shared memory at this form
 
@@ -113,12 +158,12 @@ def _check(code, what):
 
 
 def _start_build():
-    """nvcc for the two probe sources, started now; returns a function that
+    """nvcc for the three probe sources, started now; returns a function that
     waits for them, links and loads the library."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = kernels._nvcc()
     objs, procs = [], []
-    for name, text in (("probe_wgrad", _WGRAD_PROBE), ("probe_kxk", _KXK_PROBE)):
+    for name, text in (("probe_wgrad", _WGRAD_PROBE), ("probe_kxk", _KXK_PROBE), ("probe_t3", _T3_PROBE)):
         src = kernels.BUILD_DIR / f"{name}.cu"
         src.write_text(text)
         obj = src.with_suffix(".o")
@@ -147,8 +192,9 @@ def _sig(t):
 
 
 def _record_calls():
-    """Every K6 f32 and K x K f32 call of one guided f32 step and one step-1
-    step: {(kind, step, key): [count, args]}, args the first call's tensors."""
+    """Every K6 f32, K x K f32, K2 f32 forward and 3x3/s2 f32 call of one
+    guided f32 step, one step-1 step and one f32 frame: {(kind, step, key):
+    [count, args]}, args the first call's tensors."""
     calls = {}
     step_name = []
 
@@ -157,6 +203,7 @@ def _record_calls():
         entry[0] += 1
 
     real_wg, real_kx = convops._wgrad_kernel, convops._conv_kxk_kernel
+    real_cv, real_t3 = convops._conv3x3_kernel, convops._conv_transpose3x3s2_kernel
 
     def wg(x_parts, g_parts, ksize, stride, padding):
         note("wgrad", (tuple(map(_sig, x_parts)), tuple(map(_sig, g_parts)), ksize, stride, padding),
@@ -168,14 +215,27 @@ def _record_calls():
              (x, weight, padding, stride))
         return real_kx(x, weight, padding, stride)
 
-    for kind, name in (("guided", "guided"), ("unguided", "step1")):
+    def cv(parts, weight, bias, stride, relu, shortcut, out_dtype):
+        if out_dtype == torch.float32:
+            note("conv", (tuple(map(_sig, parts)), _sig(weight), bias is None, stride, relu, shortcut is None),
+                 (parts, weight, bias, stride, relu, shortcut))
+        return real_cv(parts, weight, bias, stride, relu, shortcut, out_dtype)
+
+    def t3(cot, weight):
+        note("t3", (_sig(cot), _sig(weight)), (cot, weight))
+        return real_t3(cot, weight)
+
+    for name, run in (("guided", lambda: _train_step("guided", torch.float32, 352, 1216)),
+                      ("step1", lambda: _train_step("unguided", torch.float32, 352, 1216)),
+                      ("frame", lambda: _request(torch.float32, 352, 1216))):
         step_name.append(name)
-        step = _train_step(kind, torch.float32, 352, 1216)
+        step = run()
         step()  # warm-up: builds the kernel library, settles the allocator
         torch.cuda.synchronize()
         with ExitStack() as stack:
-            stack.enter_context(mock.patch.object(convops, "_wgrad_kernel", wg))
-            stack.enter_context(mock.patch.object(convops, "_conv_kxk_kernel", kx))
+            for attr, fn in (("_wgrad_kernel", wg), ("_conv_kxk_kernel", kx), ("_conv3x3_kernel", cv),
+                             ("_conv_transpose3x3s2_kernel", t3)):
+                stack.enter_context(mock.patch.object(convops, attr, fn))
             step()
         torch.cuda.synchronize()
     return calls
@@ -227,36 +287,100 @@ def _wgrad_candidates(lib, args):
     return f"({plan[0]},{plan[1]})", cands, want, f"[{m}, {cin}, {ksize}, {ksize}] at {ho}x{wo} B={b}"
 
 
+def _tile_candidates(lib, cout, stride, form, b, ho, wo, launch):
+    """The output-stationary kernel's candidates for one call: the plan,
+    every other tile the form has at the plan's groups, and the unsplit
+    groups where a small grid split them; (plan name, [(name, fn)])."""
+    code = lib.probe_kxk_plan(b, ho, wo, cout, stride, form)
+    groups, tile = code // 256, chr(code % 256)
+    whole = lib.probe_kxk_whole(cout, stride, form)
+    options = [(groups, tile)] + [(groups, t) for t in KXK_TILES[form, stride] if t != tile]
+    if whole != groups:  # the small grid's split against the unsplit groups
+        options.append((whole, chr(lib.probe_kxk_tile(-(-cout // whole), stride, form))))
+    cands = []
+    for gr, t in options:
+        if lib.probe_kxk_rows(cout, gr, ord(t)) < 1:
+            continue  # more slabs than warps: not a shape this tile takes
+        cands.append((f"{t}/{gr}g", launch(gr, t)))
+    return f"{tile}/{groups}g", cands
+
+
 def _kxk_candidates(lib, args):
     x, weight, padding, stride = args
     b, cin, h, w = x.shape
     cout, k = weight.shape[1 if stride == 1 else 0], weight.shape[-1]
     ho, wo = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
-    groups = lib.probe_kxk_groups(b, ho, wo, cout, stride)
-    most = 48 if stride == 2 else 128
-    whole = -(-cout // most)
-    plan = (groups, chr(lib.probe_kxk_tile(-(-cout // groups), stride)))
     ptrs, meta = kernels.part_args([x], [False])
     stream = kernels.stream_of(x)
     wc = weight.detach().float().contiguous()
-    options = [(groups, t) for t in KXK_TILES[stride]]
-    if whole != groups:  # the small grid's split against the unsplit groups
-        options.append((whole, chr(lib.probe_kxk_tile(-(-cout // whole), stride))))
-    cands = []
-    for gr, t in options:
-        if lib.probe_kxk_rows(cout, gr, ord(t)) < 1:
-            continue  # more slabs than warps: not a shape this tile takes
+
+    def launch(gr, t):
         out = torch.empty((b, cout, ho, wo), device="cuda")
 
-        def fn(out=out, gr=gr, t=t):
+        def fn():
             code = lib.probe_kxk(ptrs, meta, b, h, w, cin, ho, wo, cout, k, stride, padding, wc.data_ptr(),
                                  out.data_ptr(), gr, ord(t), stream)
             _check(code, f"probe_kxk ({gr}, {t})")
             return out
-        cands.append((f"{t}/{gr}g", fn))
+        return fn
+    plan, cands = _tile_candidates(lib, cout, stride, GRAD, b, ho, wo, launch)
     w_kxk = weight.flip(2, 3).transpose(0, 1) if stride == 1 else weight
     want = lambda: convops.conv2d(x, w_kxk, stride=stride, padding=padding)
-    return f"{plan[1]}/{plan[0]}g", cands, want, f"[{b}, {cout}, {ho}, {wo}] from {cin} k{k} s{stride}"
+    return plan, cands, want, f"[{b}, {cout}, {ho}, {wo}] from {cin} k{k} s{stride}"
+
+
+def _conv_candidates(lib, args):
+    parts, weight, bias, stride, relu, shortcut = args
+    b, _, h, w = parts[0].shape
+    cout, cin = weight.shape[:2]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    form = FWD if shortcut is None else FWD_RES
+    ptrs, meta = kernels.part_args(parts, [False] * len(parts))
+    stream = kernels.stream_of(parts[0])
+    wc, bc = weight.detach().float().contiguous(), None if bias is None else bias.detach().float().contiguous()
+    sc = None if shortcut is None else shortcut.detach().float().contiguous()
+    u8 = int(parts[0].dtype == torch.uint8)
+
+    def launch(gr, t):
+        out = torch.empty((b, cout, ho, wo), device="cuda")
+
+        def fn():
+            code = lib.probe_conv3x3(ptrs, meta, len(parts), u8, b, h, w, cin, ho, wo, cout, stride,
+                                     wc.data_ptr(), None if sc is None else sc.data_ptr(),
+                                     None if bc is None else bc.data_ptr(), out.data_ptr(), int(relu), gr, ord(t),
+                                     stream)
+            _check(code, f"probe_conv3x3 ({gr}, {t})")
+            return out
+        return fn
+    plan, cands = _tile_candidates(lib, cout, stride, form, b, ho, wo, launch)
+    want = lambda: convops.conv3x3_plain(parts, weight, bias, stride=stride, relu=relu, shortcut=shortcut,
+                                         out_dtype=torch.float32)
+    label = f"[{b}, {cout}, {ho}, {wo}] from {cin} s{stride}{' res' if shortcut is not None else ''}"
+    return plan, cands, want, label
+
+
+def _t3_candidates(lib, args):
+    cot, weight = args
+    b, cin, h, w = cot.shape
+    cout = weight.shape[1]
+    code = lib.probe_t3_plan(b, h, w, cout)
+    groups, rows = code // 256, code % 256
+    ptrs, meta = kernels.part_args([cot], [False])
+    stream = kernels.stream_of(cot)
+    wc = weight.detach().float().contiguous()
+    # the plan, and its groups split in two (blocks of half the warps), which lost and went
+    options = [(groups, rows)] + ([(2 * groups, rows)] if -(-cout // (2 * groups)) >= 16 else [])
+    cands = []
+    for gr, r in options:
+        out = torch.empty((b, cout, 2 * h, 2 * w), device="cuda")
+
+        def fn(out=out, gr=gr, r=r):
+            code = lib.probe_t3(ptrs, meta, b, h, w, cin, cout, wc.data_ptr(), out.data_ptr(), gr, r, stream)
+            _check(code, f"probe_t3 ({gr}, {r})")
+            return out
+        cands.append((f"T/{gr}g", fn))
+    want = lambda: convops.conv3x3s2_input_grad_plain(cot, weight)
+    return f"T/{groups}g", cands, want, f"[{b}, {cout}, {2 * h}, {2 * w}] from {cin}"
 
 
 def main(argv=None) -> dict:
@@ -276,7 +400,8 @@ def main(argv=None) -> dict:
     with torch.no_grad(), kernels.exact_f32(torch.empty(0, device="cuda")):
         for key, (count, cargs) in calls.items():
             kind, step = key[:2]
-            plan, cands, want, label = (_wgrad_candidates if kind == "wgrad" else _kxk_candidates)(lib, cargs)
+            plan, cands, want, label = {"wgrad": _wgrad_candidates, "conv": _conv_candidates,
+                                        "t3": _t3_candidates}.get(kind, _kxk_candidates)(lib, cargs)
             ref = want()
             errs = {}
             for name, fn in list(cands):
@@ -292,7 +417,7 @@ def main(argv=None) -> dict:
                    "ms": {n: t[0] for n, t in times.items()}, "spread": {n: t[1] for n, t in times.items()}}
             rows.append(row)
             best = min(row["ms"], key=row["ms"].get)
-            print(f"{kind:10s} {step:6s} {label:40s} x{count} plan {plan:8s} "
+            print(f"{kind:10s} {step:6s} {label:44s} x{count} plan {plan:8s} "
                   + " ".join(f"{n} {row['ms'][n]:.4f}±{row['spread'][n]:.4f}" for n in row["ms"])
                   + f"  best {best}")
     summary = _branches(rows)
@@ -311,28 +436,29 @@ def _branches(rows):
     candidates every such call has)."""
     groups = {}
     for r in rows:
-        kernel = "wgrad" if r["kernel"] == "wgrad" else "kxk"
+        kernel = {"conv": "fwd"}.get(r["kernel"], r["kernel"])
         branch = r["plan"]
-        if kernel == "kxk":
+        if kernel != "wgrad":  # candidates named tile/groups: the tile and whether the plan split its groups
             tile, g = r["plan"].split("/")
             unsplit = [n for n in r["ms"] if not n.endswith(f"/{g}")]
-            branch = tile + (" split" if unsplit else "") + f" ({r['step']})"
+            form = (" s2" if " s2" in r["call"] else "") + (" res" if r["call"].endswith(" res") else "")
+            branch = tile + form + (" split" if unsplit and kernel != "t3" else "") + f" ({r['step']})"
         groups.setdefault((kernel, branch), []).append(r)
     out = []
     for (kernel, branch), rs in groups.items():
-        names = set.intersection(*(set(r["ms"]) - {r["plan"]} for r in rs)) if kernel == "wgrad" else None
         disp = {}
         if kernel == "wgrad":
+            names = set.intersection(*(set(r["ms"]) - {r["plan"]} for r in rs))
             for n in sorted(names):
                 disp[n] = {"ms": sum(r["count"] * r["ms"][n] for r in rs),
                            "spread": sum(r["count"] * r["spread"][n] for r in rs)}
-        else:  # K x K candidates are named tile/groups; sum by tile letter and by the unsplit groups
+        else:  # sum by tile letter and by the unsplit groups
             for r in rs:
                 g = r["plan"].split("/")[1]
                 for n in r["ms"]:
                     if n == r["plan"]:
                         continue
-                    label = "unsplit" if not n.endswith(f"/{g}") else n.split("/")[0]
+                    label = n.split("/")[0] if n.endswith(f"/{g}") else "split" if kernel == "t3" else "unsplit"
                     d = disp.setdefault(label, {"ms": 0.0, "spread": 0.0, "calls": 0})
                     d["ms"] += r["count"] * r["ms"][n]
                     d["spread"] += r["count"] * r["spread"][n]

@@ -1,8 +1,9 @@
-"""K6's f32 weight cotangent (``csrc/wgrad.cu``) and K2's f32 K x K form
-(``csrc/conv.cu``, ``convkxk_kernel``) run on the CPU under the host
-emulation of the CUDA launch model (``csrc/host_emu.h``).
+"""K6's f32 weight cotangent (``csrc/wgrad.cu``), K2's f32 output-stationary
+kernel (``csrc/conv.cu``, ``convkxk_kernel``: the backward's K x K form and
+the forward) and K3's f32 3x3/s2 form (``csrc/convt.cu``) run on the CPU
+under the host emulation of the CUDA launch model (``csrc/host_emu.h``).
 
-The two sources are compiled with ``g++ -x c++ -std=c++20 -include
+The three sources are compiled with ``g++ -x c++ -std=c++20 -include
 host_emu.h`` into a shared library, which takes the kernel library's place
 while the public wrappers run on CPU tensors as on the card: each launch
 goes through the real C entry, plan and kernel, its blocks one after
@@ -14,9 +15,16 @@ to its plain version at 1e-5 rel RMSE at shapes of a few blocks: K6's tile
 shapes (M = 1, N < 45 at M <= 32 and above, M <= 32, M > 32 in tiles of 64
 and of 40), its three forms, multi-part operands, a channel-offset view,
 rows read as 16-byte vectors and not; the K x K form's tile shapes (up to
-8 and 16 channels, one to four slabs of 32, more in balanced groups, a
+8 and 16 channels, one to four slabs of 32 (tile P), more in balanced groups, a
 small grid's narrower groups), K 1 / 3 / 5 at stride 1 with the forward
-weight read flipped, and 4x4 at stride 2. Skips only where g++ is absent.
+weight read flipped, and 4x4 at stride 2; the forward's (stride 1 and 2,
+one to four parts, a uint8 NHWC part, the residual epilogue, cin 1 and 3,
+the cout-1 tile, 33 / 64 / 128 outputs, the small-grid split); the 3x3/s2
+form's (32, 33, 64 and 128 outputs). Skips only where g++ is
+absent. The forward's and the 3x3/s2 form's cases also run on the card
+(``cuda``-marked, skipped without one):
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_host_emu.py
 """
 import contextlib
 import ctypes
@@ -42,7 +50,7 @@ def emu(tmp_path_factory):
     for stub in ("cuda_runtime.h", "cuda_bf16.h"):  # host_emu.h defines what the sources use of them
         (d / stub).write_text("")
     so = d / "emu.so"
-    objs = [d / f"{name}.o" for name in ("wgrad", "conv")]
+    objs = [d / f"{name}.o" for name in ("wgrad", "conv", "convt")]
     builds = [subprocess.Popen([gxx, "-x", "c++", "-std=c++20", "-O1", "-fPIC", f"-I{d}", "-include",
                                 str(kernels.CSRC / "host_emu.h"), "-c", str(kernels.CSRC / f"{o.stem}.cu"),
                                 "-o", str(o)], stderr=subprocess.PIPE, text=True) for o in objs]
@@ -121,11 +129,11 @@ _KXK = [
     (3, 1, 1, 8, 8, 2, 130, 37),    # D
     (5, 1, 2, 8, 16, 2, 130, 20),   # C, one slab; step 1's 5x5
     (1, 1, 0, 16, 8, 2, 130, 33),   # D at 1x1
-    (3, 1, 0, 16, 32, 2, 130, 37),  # B; the forward conv had pad 0
-    (3, 1, 1, 16, 40, 2, 130, 35),  # B, two slabs
-    (3, 1, 1, 1, 64, 2, 130, 37),   # B, two slabs, from a 1-channel cotangent
-    (3, 1, 1, 8, 128, 2, 130, 33),  # B, four slabs
-    (3, 1, 1, 9, 131, 2, 130, 20),  # two balanced groups of 66, B in three slabs
+    (3, 1, 0, 16, 32, 2, 130, 37),  # P (two rows a thread); the forward conv had pad 0
+    (3, 1, 1, 16, 40, 2, 130, 35),  # P, two slabs
+    (3, 1, 1, 1, 64, 2, 130, 37),   # P, two slabs, from a 1-channel cotangent
+    (3, 1, 1, 8, 128, 2, 130, 33),  # P, four slabs
+    (3, 1, 1, 9, 131, 2, 130, 20),  # two balanced groups of 66, P in three slabs
     (3, 1, 1, 16, 64, 1, 9, 37),    # a small grid: four groups of 16
 ]
 
@@ -158,3 +166,98 @@ def test_4x4s2_input_grad_under_emulation_matches_plain_version(emu, cin, cout, 
         assert kernels.launch_counts()["conv4x4s2"] == 1
     want = ops.conv_transpose4x4s2_input_grad_plain(up, wt)
     assert got.shape == want.shape and _rel(got, want) <= BAR
+
+
+@pytest.fixture(params=["emu", pytest.param("card", marks=pytest.mark.cuda)])
+def where(request):
+    """(device, context): the emulated kernels on CPU tensors, or the real
+    ones on the card."""
+    if request.param == "card":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        return torch.device("cuda"), contextlib.nullcontext
+    lib = request.getfixturevalue("emu")
+    return torch.device("cpu"), lambda: emulated_card(lib)
+
+
+# (stride, part channels, cout, residual, bias, b, h, w): the forward's plan
+# branches (tiles B, C, D, H at stride 1, F at stride 2, B for the residual form); "view3" is a channel-offset view, "u8" the (b, h, w, 3) uint8
+# frame read through its NHWC strides. At B = 2 and 130 output rows of two
+# 32-pixel column tiles a grid has 68 blocks a channel group, so the plan
+# keeps its groups whole.
+_FWD = [
+    (1, (5, 3), 33, False, True, 2, 130, 37),             # B, two slabs, over two parts
+    (1, (1, 2, "view3", 2), 64, True, True, 2, 130, 37),  # four parts, residual, B two slabs
+    (1, (1,), 32, False, True, 2, 130, 36),               # cin 1 (depth_conv), rows as 16-byte vectors
+    (1, ("u8",), 32, True, True, 2, 130, 37),             # the u8 frame (cin 3), residual
+    (1, (16,), 1, False, True, 2, 40, 40),                # a cout-1 head: tile H
+    (1, (8,), 128, False, True, 2, 130, 36),              # B, four slabs
+    (1, (8,), 8, False, False, 2, 130, 37),               # D, no bias, no ReLU
+    (1, (6,), 16, False, True, 2, 130, 33),               # C
+    (2, (8,), 64, True, True, 2, 259, 73),                # stride 2, residual, B two slabs
+    (2, (3, 3), 128, False, True, 2, 260, 72),            # stride 2, F two slabs (the stacked pair)
+    (1, (16,), 64, False, True, 1, 9, 37),                # a small grid: four groups of 16
+    (2, (8,), 128, False, True, 1, 17, 40),               # a small grid at stride 2: kept whole, B (not F)
+]
+
+
+@pytest.mark.parametrize("stride,pc,cout,res,bias,b,h,w", _FWD)
+def test_forward_matches_plain_version(where, stride, pc, cout, res, bias, b, h, w):
+    dev, ctx = where
+    g = torch.Generator().manual_seed(300 + 10 * stride + cout + len(pc))
+    parts = []
+    for c in pc:
+        if c == "u8":
+            parts.append(torch.randint(0, 256, (b, h, w, 3), generator=g, dtype=torch.uint8).permute(0, 3, 1, 2))
+        elif c == "view3":
+            parts.append(_r(g, b, 6, h, w)[:, 3:])
+        else:
+            parts.append(_r(g, b, c, h, w))
+    cin = sum(p.shape[1] for p in parts)
+    wt = _r(g, cout, cin, 3, 3) * (9 * cin) ** -0.5
+    bt = _r(g, cout) if bias else None
+    sc = _r(g, cout, cin, 1, 1) * cin ** -0.5 if res else None
+    parts = [p.to(dev) for p in parts]
+    wt, bt, sc = (None if t is None else t.to(dev) for t in (wt, bt, sc))
+    relu = res or bias
+    with ctx():
+        kernels.reset_launch_counts()
+        got = ops.conv3x3(parts, wt, bt, stride=stride, relu=relu, shortcut=sc)
+        assert kernels.launch_counts()["conv"] == 1
+    want = convops.conv3x3_plain(parts, wt, bt, stride=stride, relu=relu, shortcut=sc)
+    assert got.dtype == torch.float32 and got.shape == want.shape and _rel(got, want) <= BAR
+
+
+# (cin, cout, b, h, w, view): the 3x3/s2 form's plan
+_T3 = [
+    (24, 32, 2, 130, 40, False),  # one group of 32: two slabs, 4 g rows a block; 16-byte rows
+    (13, 64, 2, 66, 40, False),   # one group of 64: four slabs, 2 g rows; a partial channel chunk
+    (12, 33, 2, 66, 37, True),    # three slabs (6 warps), ragged edges; element copies of a view
+    (16, 128, 1, 10, 20, False),  # two groups of 64
+]
+
+
+@pytest.mark.parametrize("cin,cout,b,h,w,view", _T3)
+def test_3x3s2_input_grad_matches_plain_version(where, cin, cout, b, h, w, view):
+    dev, ctx = where
+    g = torch.Generator().manual_seed(400 + cin + cout)
+    cot = _r(g, b, cin + 3, h, w)[:, 3:] if view else _r(g, b, cin, h, w)
+    wt = _r(g, cin, cout, 3, 3)
+    cot, wt = cot.to(dev), wt.to(dev)
+    with ctx():
+        kernels.reset_launch_counts()
+        got = ops.conv3x3s2_input_grad(cot, wt)
+        assert kernels.launch_counts()["conv_transpose3x3s2"] == 1
+    want = ops.conv3x3s2_input_grad_plain(cot, wt)
+    assert got.shape == want.shape == (b, cout, 2 * h, 2 * w) and _rel(got, want) <= BAR
+
+
+def test_conv3x3_entry_refuses_an_upsampled_part(emu):
+    """No caller reads an upsampled part through K2: its entry raises."""
+    x, w = torch.randn(1, 4, 4, 4), torch.randn(8, 4, 3, 3)
+    out = torch.empty(1, 8, 8, 8)
+    ptrs, meta = kernels.part_args([x], [True])
+    with emulated_card(emu), pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.launch("conv", "nct_conv3x3", out, ptrs, meta, 1, 0, 0, 1, 8, 8, 4, 8, 8, 8, 1, w, None, None,
+                       out, 0)
+    assert kernels.launch_counts()["conv"] == 0
