@@ -16,7 +16,8 @@ Phases (any failure raises and the script exits non-zero):
      ``conv_chain_tc``), random inputs from seeded generators, with kernel /
      plain / library times from CUDA events (median of 20); beside each bf16
      chain, two cuDNN bf16 convs and two ``conv_tc`` launches on the same
-     shapes, beside each f32 chain two cuDNN f32 convs;
+     shapes, beside each f32 chain two cuDNN f32 convs and two launches of
+     K2's f32 forward (``conv``);
   3. the main path: ``StreamingEngine`` with random-init weights carried
      through BN folding, in f32 and in the mixed schedule, answering
      two-stream requests of synthetic frames; outputs must be finite, zero
@@ -163,8 +164,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "wgrad_tc": ("nconv_tpu_torch/csrc/wgrad_tc.cu", "nconv_tpu/ops/pallas_conv.py:1093"),
 }
 # timed beside each bf16 chain: two cuDNN bf16 convs, two conv_tc launches;
-# beside each f32 chain: two cuDNN f32 convs
-YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms", "two_cudnn_f32_ms")
+# beside each f32 chain: two cuDNN f32 convs, two launches of K2's f32 forward
+YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms", "two_cudnn_f32_ms", "two_conv_f32_ms")
 TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
 GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per f32 guided train step
 # per bf16 guided train step: the tensor-core backward forms, which only the
@@ -571,9 +572,15 @@ def check_call(key, g):
         cin, cmid, cout = w1sig[0][1], w1sig[0][0], w2sig[0][0]
         macs_per_out = 9 * (cmid * cin + cout * cmid) / cout
         inputs = [x, w1, b1, w2, b2]
-        # the yardstick: two cuDNN f32 convs (TF32 off, as main() sets)
-        yardsticks = {"two_cudnn_f32_ms": lambda: torch.relu(F.conv2d(torch.relu(F.conv2d(x, w1, b1, padding=1)), w2,
-                                                                      b2, padding=1))}
+        # the yardsticks: two cuDNN f32 convs (TF32 off, as main() sets), and
+        # two launches of K2's own f32 forward
+        yardsticks = {
+            "two_cudnn_f32_ms": lambda: torch.relu(F.conv2d(torch.relu(F.conv2d(x, w1, b1, padding=1)), w2, b2,
+                                                            padding=1)),
+            "two_conv_f32_ms": lambda: convops._conv3x3_kernel(
+                [convops._conv3x3_kernel([x], w1, b1, 1, True, None, torch.float32)], w2, b2, 1, True, None,
+                torch.float32),
+        }
 
     k_out, p_out = kern(), plain()
     torch.cuda.synchronize()

@@ -39,6 +39,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
 }
+// 8 bytes from global src to shared dst, src_bytes (8 or 0) of them read and
+// the rest zero-filled.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
 // 4 bytes from global src to shared dst, src_bytes (4 or 0) of them read and
 // the rest zero-filled; the f32 kernels' element copies.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
@@ -99,6 +104,48 @@ template <typename T>
 __device__ __forceinline__ float round_as(float v) {
   T t = from_f<T>(v);
   return load_f<T>(&t, 0);
+}
+
+// C consecutive floats of shared memory (a staged weight row's C output
+// channels) into registers: float4s, a float2 or one value, p aligned to
+// match; every thread of a warp reads the same row, so each is a broadcast.
+template <int C>
+__device__ __forceinline__ void load_w(const float* p, float (&v)[C]) {
+  static_assert(C % 4 == 0 || C <= 2, "float4s, a float2 or one value");
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < C / 4; ++k) {
+      const float4 t = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = t.x, v[4 * k + 1] = t.y, v[4 * k + 2] = t.z, v[4 * k + 3] = t.w;
+    }
+  } else if constexpr (C == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// A warp's copies of one contiguous f32 row into shared memory: n vectors of
+// V floats (16-, 8- or 4-byte cp.async), vector i from src[x0 + V * i] to
+// dst[V * i], lane by lane. A vector inside [0, W) of a live row is read,
+// any other zero-filled; x0 and W are multiples of V, so none straddles the
+// image's edge, and the bounds are tested once a vector, not once a value.
+template <int V>
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int x0, int n, int W, bool live,
+                                          int lane) {
+  static_assert(V == 4 || V == 2 || V == 1, "16-, 8- or 4-byte copies");
+  for (int i = lane; i < n; i += 32) {
+    const int x = x0 + V * i;
+    const bool in = live && x >= 0 && x < W;
+    const float* s = in ? src + x : src;
+    if constexpr (V == 4)
+      cp_async16(smem_u32(dst + 4 * i), s, in ? 16 : 0);
+    else if constexpr (V == 2)
+      cp_async8(smem_u32(dst + 2 * i), s, in ? 8 : 0);
+    else
+      cp_async4(smem_u32(dst + i), s, in ? 4 : 0);
+  }
 }
 
 // Logical channel c of batch b at logical pixel (y, x); 0 outside the
@@ -190,7 +237,7 @@ inline void fill_parts(Part* dst, const void* const* ptrs,
 // row of n floats. The copies that transpose the weights into it write a
 // channel's taps n floats apart: at n a multiple of 32 all on one bank, so
 // such a row is 4 floats longer (still 16-byte aligned for float4 reads).
-inline int padded_row(int n) { return n % 32 ? n : n + 4; }
+constexpr int padded_row(int n) { return n % 32 ? n : n + 4; }
 
 // Host side: whether a part's rows of BYTES-byte elements may be read as
 // aligned 16-byte vectors.

@@ -237,21 +237,6 @@ struct Geo {
   static __host__ __device__ constexpr int stage(int rows, int wst) { return xsz(rows) + CIC * KW * wst; }
 };
 
-// CO weights of one staged row, as float4 broadcasts (or one value)
-template <int CO>
-__device__ __forceinline__ void load_w(const float* p, float (&wv)[CO]) {
-  if constexpr (CO % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < CO / 4; ++k) {
-      const float4 v = reinterpret_cast<const float4*>(p)[k];
-      wv[4 * k] = v.x, wv[4 * k + 1] = v.y, wv[4 * k + 2] = v.z, wv[4 * k + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < CO; ++k) wv[k] = p[k];
-  }
-}
-
 template <int K, int S, int F, int PX, int CO, int CGW, int PY>
 __global__ void __launch_bounds__(32 * MAX_WARPS) convkxk_kernel(const Args a) {
   using G = Geo<K, S, F>;
@@ -291,12 +276,7 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) convkxk_kernel(const Args a) {
           drow[col(xx)] = live && x >= 0 && x < a.W ? static_cast<float>(src[x * p.sw]) : 0.f;
         }
       } else if (S == 1 && a.vec) {  // whole vectors, in or out of the image (W % 4 == 0)
-        const float* src = static_cast<const float*>(p.ptr) + base;
-        for (int v = lane; v < G::IWS / 4; v += 32) {
-          const int x = xb - 4 + 4 * v;
-          const bool in = live && x >= 0 && x < a.W;
-          cp_async16(smem_u32(drow + 4 * v), in ? src + x : src, in ? 16 : 0);
-        }
+        stage_row<4>(drow, static_cast<const float*>(p.ptr) + base, xb - 4, G::IWS / 4, a.W, live, lane);
       } else {
         const float* src = static_cast<const float*>(p.ptr) + base;
         for (int xx = lane; xx < G::IW; xx += 32) {

@@ -4,9 +4,10 @@
 //   g++ -x c++ -std=c++20 -O1 -shared -fPIC -I <dir of empty cuda_runtime.h
 //       and cuda_bf16.h> -include host_emu.h wgrad.cu conv.cu convt.cu -o emu.so
 //
-// The tests use it (tests/test_torch_host_emu.py) to hold the f32 CUDA-core
-// kernels to their plain versions without a card; nvcc never includes it and
-// the package never loads what it builds.
+// The tests use it (tests/test_torch_host_emu.py: wgrad.cu, conv.cu,
+// convt.cu; tests/test_torch_host_emu_nconv_chain.py: nconv.cu, chain.cu)
+// to hold the f32 CUDA-core kernels to their plain versions without a card;
+// nvcc never includes it and the package never loads what it builds.
 //
 // What it models:
 //  * a launch runs its blocks one after another on one host thread, each
@@ -17,7 +18,7 @@
 //  * __shared__ arrays are static storage (blocks run in turn), and the
 //    dynamic shared memory is one buffer a block, poisoned with 0xFF bytes
 //    (an f32 NaN) first, so a sum that reads a word never staged shows;
-//  * cp.async (4 and 16 bytes) is a synchronous copy of src_bytes with the
+//  * cp.async (4, 8 and 16 bytes) is a synchronous copy of src_bytes with the
 //    rest zero-filled, into the block's dynamic shared memory (smem_u32
 //    gives an offset in it);
 //  * the device queries and attributes answer for one card of 132 SMs.
@@ -48,6 +49,9 @@ struct dim3 {
 };
 struct alignas(16) float4 {
   float x, y, z, w;
+};
+struct alignas(8) float2 {
+  float x, y;
 };
 struct alignas(16) uint4 {
   uint32_t x, y, z, w;
@@ -179,6 +183,7 @@ inline void cp_async_n(uint32_t dst, const void* src, int n, int src_bytes) {
   std::memset(d + src_bytes, 0, static_cast<size_t>(n - src_bytes));
 }
 inline void cp_async4(uint32_t dst, const void* src, int src_bytes) { cp_async_n(dst, src, 4, src_bytes); }
+inline void cp_async8(uint32_t dst, const void* src, int src_bytes) { cp_async_n(dst, src, 8, src_bytes); }
 inline void cp_async16(uint32_t dst, const void* src, int src_bytes) { cp_async_n(dst, src, 16, src_bytes); }
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}

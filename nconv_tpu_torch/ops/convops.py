@@ -352,7 +352,12 @@ def conv3x3_chain2(x, w1, b1, w2, b2) -> torch.Tensor:
     """``relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2)``, pad 1, with
     the intermediate rounded to ``x.dtype`` as a stored tensor would be; on
     a bf16 ``x`` the weights are read rounded to bf16 (as :func:`conv3x3`
-    reads them), the biases as held."""
+    reads them), the biases as held.
+
+    On the card both forms (f32 ``csrc/chain.cu``, bf16
+    ``csrc/conv_chain_tc.cu``) take cmid and cout up to 64, the fusion
+    stages' widths: a block holds every intermediate channel of its tile in
+    shared memory, run as 32 or 64 channels. A wider chain raises."""
     if not kernels.on_card(x, w1, b1, w2, b2):
         return conv3x3_chain2_plain(x, w1, b1, w2, b2)
     if x.dtype == torch.bfloat16:
@@ -381,8 +386,8 @@ def _check_chain(x, w1, w2):
 def _chain_kernel(x, w1, b1, w2, b2):
     kernels.no_graph("conv_chain", x, w1, b1, w2, b2)
     b, cin, h, w, cmid, cout = _check_chain(x, w1, w2)
-    if x.dtype != torch.float32 or cmid % 8:
-        raise ValueError("K4's CUDA-core form takes float32 (bf16: conv_chain_tc) and cmid % 8 == 0")
+    if x.dtype != torch.float32 or not (1 <= cmid <= 64 and 1 <= cout <= 64):
+        raise ValueError("K4's CUDA-core form takes float32 (bf16: conv_chain_tc) and cmid, cout up to 64")
     out = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype)
     kernels.launch("conv_chain", "nct_conv_chain2", out, x, kernels.DTYPE_CODE[x.dtype], b, h, w, cin, cmid, cout,
                    *map(_f32, (w1, b1, w2, b2)), out)

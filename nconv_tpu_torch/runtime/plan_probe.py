@@ -8,14 +8,16 @@ K2's output-stationary kernel (``convkxk_kernel`` of ``csrc/conv.cu``), in
 its backward K x K form and its forward (plain and residual), picks channel
 groups (a small grid splits them) and a tile (B-F, H, P) by group width,
 form and stride; K3's f32 3x3/s2 form (``csrc/convt.cu``) is timed against
-its groups split in two. This script drives one f32 guided train step
-(B = 1), one step-1 train step (B = 4) and one f32 two-stream frame at
-KITTI 352x1216 and records every call of the four. Then, for each
+its groups split in two; K1 (``csrc/nconv.cu``) picks the direct 1x1 form
+(D) for an unpooled 1x1, else the tiled form of its output channels (Q at
+8, T at 1); K4's f32 form (``csrc/chain.cu``) a tile (S, T) by its grid. This script drives one f32 guided train step (B = 1), one step-1
+train step (B = 4), one f32 and one mixed two-stream frame at KITTI
+352x1216 and records every call of the six kernels. Then, for each
 distinct call, it launches each tile the kernel has (and the unsplit
 groups) through a probe library that includes the sources unchanged and
 exports their ``run`` with a given plan, checks each against the plain
-version (1e-5 rel RMSE), and times
-them with CUDA events: ``rounds`` rounds of ``reps`` launches each, the
+version (1e-5 rel RMSE, each output of K1), and times them with CUDA
+events: ``rounds`` rounds of ``reps`` launches each, the
 candidates in a rotating order, reporting the median round and the spread
 (max - min) of the rounds.
 
@@ -36,7 +38,7 @@ from unittest import mock
 import torch
 
 from .. import kernels
-from ..ops import convops
+from ..ops import convops, nconv
 from .profile import _request, _train_step
 
 # The probe's own entries: the sources' launch code with a plan given.
@@ -123,7 +125,40 @@ extern "C" int probe_t3(const void* const* x_ptr, const long long* x_meta, int B
 }
 """
 
-P, I = ctypes.c_void_p, ctypes.c_int
+_NCONV_PROBE = r"""
+#include "nconv.cu"
+extern "C" int probe_nconv_plan(int ksize, int cout, int pool) { return nct::nc::plan(ksize, cout, pool); }
+extern "C" int probe_nconv(const void* const* d_ptrs, const void* const* c_ptrs, const long long* part_meta,
+                           int nparts, int B, int H, int W, int cin, int ho, int wo, int cout, int ksize, int pad,
+                           float eps, const float* w, const float* bias, const float* ksum, float* out, float* conf,
+                           float* pout, float* pconf, int form, void* stream) {
+  using namespace nct;
+  nc::Args a{};
+  if (!nc::args_of(a, d_ptrs, c_ptrs, part_meta, nparts, B, H, W, cin, ho, wo, pad, eps, w, bias, ksum, out, conf,
+                   pout, pconf))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return nc::run(a, static_cast<char>(form), ksize, cout, pout != nullptr, static_cast<cudaStream_t>(stream));
+}
+"""
+
+_CHAIN_PROBE = r"""
+#include "chain.cu"
+extern "C" int probe_chain_plan(int B, int H, int W, int cmid, int cout) {
+  const nct::ch::Plan p = nct::ch::plan(B, H, W, cmid, cout);
+  return 256 * p.width + p.tile;
+}
+extern "C" int probe_chain(const void* x, int B, int H, int W, int cin, int cmid, int cout, const float* w1,
+                           const float* b1, const float* w2, const float* b2, void* out, int tile, int width,
+                           void* stream) {
+  using namespace nct;
+  ch::Args a{};
+  if (!ch::args_of(a, x, F32, B, H, W, cin, cmid, cout, w1, b1, w2, b2, out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ch::run(a, {static_cast<char>(tile), width}, static_cast<cudaStream_t>(stream));
+}
+"""
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PROBE_SIGNATURES = {
     "probe_wgrad_tile": [I, I],
     "probe_wgrad_slices": [I, I, I, I, I, I, I],
@@ -136,7 +171,12 @@ _PROBE_SIGNATURES = {
     "probe_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, I, I, P],
     "probe_t3_plan": [I, I, I, I],
     "probe_t3": [P, P, I, I, I, I, I, P, P, I, I, P],
+    "probe_nconv_plan": [I, I, I],
+    "probe_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, I, P],
+    "probe_chain_plan": [I, I, I, I, I],
+    "probe_chain": [P, I, I, I, I, I, I, P, P, P, P, P, I, I, P],
 }
+CHAIN_TILES = "ST"
 WGRAD_TILES = [(8, 8), (8, 5), (4, 8), (1, 1), (16, 2)]
 GRAD, FWD, FWD_RES = 0, 1, 2  # conv.cu's kxk::Form
 # the tiles each form of the output-stationary kernel is built with, by stride
@@ -150,6 +190,12 @@ class _NoFit(Exception):
     pass
 
 
+def nconv_forms(k, cout, pool_out):
+    """K1's forms at (k, cout, pool_out): the tiled form of the output
+    channels (Q at 8, T at 1), and the direct form (D) for an unpooled 1x1."""
+    return ["Q" if cout == 8 else "T"] + (["D"] if k == 1 and not pool_out else [])
+
+
 def _check(code, what):
     if code == NO_FIT:
         raise _NoFit(what)
@@ -158,12 +204,13 @@ def _check(code, what):
 
 
 def _start_build():
-    """nvcc for the three probe sources, started now; returns a function that
+    """nvcc for the five probe sources, started now; returns a function that
     waits for them, links and loads the library."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = kernels._nvcc()
     objs, procs = [], []
-    for name, text in (("probe_wgrad", _WGRAD_PROBE), ("probe_kxk", _KXK_PROBE), ("probe_t3", _T3_PROBE)):
+    for name, text in (("probe_wgrad", _WGRAD_PROBE), ("probe_kxk", _KXK_PROBE), ("probe_t3", _T3_PROBE),
+                       ("probe_nconv", _NCONV_PROBE), ("probe_chain", _CHAIN_PROBE)):
         src = kernels.BUILD_DIR / f"{name}.cu"
         src.write_text(text)
         obj = src.with_suffix(".o")
@@ -192,9 +239,10 @@ def _sig(t):
 
 
 def _record_calls():
-    """Every K6 f32, K x K f32, K2 f32 forward and 3x3/s2 f32 call of one
-    guided f32 step, one step-1 step and one f32 frame: {(kind, step, key):
-    [count, args]}, args the first call's tensors."""
+    """Every K6 f32, K x K f32, K2 f32 forward, 3x3/s2 f32, K1 and K4 f32
+    call of one guided f32 step, one step-1 step, one f32 frame and one
+    mixed frame: {(kind, step, key): [count, args]}, args the first call's
+    tensors."""
     calls = {}
     step_name = []
 
@@ -204,6 +252,7 @@ def _record_calls():
 
     real_wg, real_kx = convops._wgrad_kernel, convops._conv_kxk_kernel
     real_cv, real_t3 = convops._conv3x3_kernel, convops._conv_transpose3x3s2_kernel
+    real_nc, real_ch = nconv._nconv2d_kernel, convops._chain_kernel
 
     def wg(x_parts, g_parts, ksize, stride, padding):
         note("wgrad", (tuple(map(_sig, x_parts)), tuple(map(_sig, g_parts)), ksize, stride, padding),
@@ -225,17 +274,28 @@ def _record_calls():
         note("t3", (_sig(cot), _sig(weight)), (cot, weight))
         return real_t3(cot, weight)
 
+    def nc(d, c, w, b, padding, up2, crop, pool_out, eps):
+        note("nconv", (tuple(map(_sig, d)), tuple(up2), _sig(w), padding, crop, pool_out),
+             (d, c, w, b, padding, up2, crop, pool_out, eps))
+        return real_nc(d, c, w, b, padding, up2, crop, pool_out, eps)
+
+    def ch(x, w1, b1, w2, b2):
+        note("chain", (_sig(x), _sig(w1), _sig(w2)), (x, w1, b1, w2, b2))
+        return real_ch(x, w1, b1, w2, b2)
+
     for name, run in (("guided", lambda: _train_step("guided", torch.float32, 352, 1216)),
                       ("step1", lambda: _train_step("unguided", torch.float32, 352, 1216)),
-                      ("frame", lambda: _request(torch.float32, 352, 1216))):
+                      ("frame", lambda: _request(torch.float32, 352, 1216)),
+                      ("mixed", lambda: _request(torch.bfloat16, 352, 1216))):
         step_name.append(name)
         step = run()
         step()  # warm-up: builds the kernel library, settles the allocator
         torch.cuda.synchronize()
         with ExitStack() as stack:
             for attr, fn in (("_wgrad_kernel", wg), ("_conv_kxk_kernel", kx), ("_conv3x3_kernel", cv),
-                             ("_conv_transpose3x3s2_kernel", t3)):
+                             ("_conv_transpose3x3s2_kernel", t3), ("_chain_kernel", ch)):
                 stack.enter_context(mock.patch.object(convops, attr, fn))
+            stack.enter_context(mock.patch.object(nconv, "_nconv2d_kernel", nc))
             step()
         torch.cuda.synchronize()
     return calls
@@ -260,6 +320,8 @@ def _time(fns, rounds, reps):
 
 
 def _rel(a, b):
+    if isinstance(a, tuple):  # K1's outputs, each held to the bar
+        return max(map(_rel, a, b))
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
@@ -383,6 +445,57 @@ def _t3_candidates(lib, args):
     return f"T/{groups}g", cands, want, f"[{b}, {cout}, {2 * h}, {2 * w}] from {cin}"
 
 
+def _nconv_candidates(lib, args):
+    d, c, weight, bias, padding, up2, crop, pool_out, eps = args
+    b, h, w = nconv._check_parts(d, c, up2)
+    cout, cin, k, _ = weight.shape
+    ho, wo = h + 2 * padding - k + 1 - 2 * crop, w + 2 * padding - k + 1 - 2 * crop
+    plan = chr(lib.probe_nconv_plan(k, cout, int(pool_out)))
+    w32, b32 = weight.detach().float().contiguous(), bias.detach().float().contiguous()
+    ksum = w32.sum(dim=(1, 2, 3)).contiguous()
+    dptrs, meta = kernels.part_args(d, up2)
+    cptrs, _ = kernels.part_args(c, up2)
+    stream = kernels.stream_of(d[0])
+    cands = []
+    for form in nconv_forms(k, cout, pool_out):
+        outs = [torch.empty((b, cout, ho, wo), device="cuda") for _ in range(2)]
+        outs += [torch.empty((b, cout, ho // 2, wo // 2), device="cuda") for _ in range(2 if pool_out else 0)]
+
+        def fn(outs=outs, form=form):
+            ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+            code = lib.probe_nconv(dptrs, cptrs, meta, len(d), b, h, w, cin, ho, wo, cout, k, padding - crop, eps,
+                                   w32.data_ptr(), b32.data_ptr(), ksum.data_ptr(), *ptrs, ord(form), stream)
+            _check(code, f"probe_nconv ({form})")
+            return tuple(outs)
+        cands.append((form, fn))
+    want = lambda: nconv.nconv2d_fused_plain(d, c, weight, bias, padding=padding, up2=up2, crop=crop,
+                                             pool_out=pool_out, eps=eps)
+    label = f"[{b}, {cout}, {ho}, {wo}] from {cin} k{k}{' pool' if pool_out else ''}{' up2' if any(up2) else ''}"
+    return plan, cands, want, label
+
+
+def _chain_candidates(lib, args):
+    x, w1, b1, w2, b2 = args
+    b, cin, h, w = x.shape
+    cmid, cout = w1.shape[0], w2.shape[0]
+    code = lib.probe_chain_plan(b, h, w, cmid, cout)
+    width, tile = code // 256, chr(code % 256)
+    ws = [t.detach().float().contiguous() for t in (w1, b1, w2, b2)]
+    stream = kernels.stream_of(x)
+    cands = []
+    for t in CHAIN_TILES:
+        out = torch.empty((b, cout, h, w), device="cuda")
+
+        def fn(out=out, t=t):
+            code = lib.probe_chain(x.data_ptr(), b, h, w, cin, cmid, cout, *(v.data_ptr() for v in ws),
+                                   out.data_ptr(), ord(t), width, stream)
+            _check(code, f"probe_chain ({t}, {width})")
+            return out
+        cands.append((f"{t}/{width}", fn))
+    want = lambda: convops.conv3x3_chain2_plain(x, w1, b1, w2, b2)
+    return f"{tile}/{width}", cands, want, f"[{b}, {cin}->{cmid}->{cout}, {h}, {w}]"
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
@@ -401,7 +514,8 @@ def main(argv=None) -> dict:
         for key, (count, cargs) in calls.items():
             kind, step = key[:2]
             plan, cands, want, label = {"wgrad": _wgrad_candidates, "conv": _conv_candidates,
-                                        "t3": _t3_candidates}.get(kind, _kxk_candidates)(lib, cargs)
+                                        "t3": _t3_candidates, "nconv": _nconv_candidates,
+                                        "chain": _chain_candidates}.get(kind, _kxk_candidates)(lib, cargs)
             ref = want()
             errs = {}
             for name, fn in list(cands):
@@ -438,7 +552,9 @@ def _branches(rows):
     for r in rows:
         kernel = {"conv": "fwd"}.get(r["kernel"], r["kernel"])
         branch = r["plan"]
-        if kernel != "wgrad":  # candidates named tile/groups: the tile and whether the plan split its groups
+        if kernel in ("nconv", "chain"):  # by path: the four paths' K1 calls differ in batch and in form
+            branch = f"{branch} ({r['step']})"
+        elif kernel != "wgrad":  # candidates named tile/groups: the tile and whether the plan split its groups
             tile, g = r["plan"].split("/")
             unsplit = [n for n in r["ms"] if not n.endswith(f"/{g}")]
             form = (" s2" if " s2" in r["call"] else "") + (" res" if r["call"].endswith(" res") else "")
@@ -447,7 +563,7 @@ def _branches(rows):
     out = []
     for (kernel, branch), rs in groups.items():
         disp = {}
-        if kernel == "wgrad":
+        if kernel in ("wgrad", "nconv", "chain"):
             names = set.intersection(*(set(r["ms"]) - {r["plan"]} for r in rs))
             for n in sorted(names):
                 disp[n] = {"ms": sum(r["count"] * r["ms"][n] for r in rs),

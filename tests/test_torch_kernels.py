@@ -86,6 +86,25 @@ def test_nconv_kernel_matches_plain_version(card, k, pad, crop, pool, up2):
     assert all(_close(a, e, 1e-5) for a, e in zip(got, want))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cmid,cout,h,w", [
+    (64, 64, 64, 22, 76), (64, 64, 64, 44, 152), (64, 32, 32, 88, 304), (32, 32, 32, 176, 608), (16, 32, 16, 9, 31),
+])
+def test_chain_kernel_matches_plain_version(card, cin, cmid, cout, h, w):
+    """K4's f32 form at the fusion stages' widths: tile T at 44x152 and
+    below (S's grid under 132 blocks at B = 2), S from 88x304 up; ragged
+    edges."""
+    g = torch.Generator(device=card).manual_seed(4)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=card) * scale
+    x = r(2, cin, h, w)
+    w1, w2 = r(cmid, cin, 3, 3, scale=(9 * cin) ** -0.5), r(cout, cmid, 3, 3, scale=(9 * cmid) ** -0.5)
+    b1, b2 = r(cmid, scale=0.1), r(cout, scale=0.1)
+    kernels.reset_launch_counts()
+    got = ops.conv3x3_chain2(x, w1, b1, w2, b2)
+    assert kernels.launch_counts()["conv_chain"] == 1
+    assert _close(got, ops.conv3x3_chain2_plain(x, w1, b1, w2, b2), 1e-5)
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     kernels.reset_launch_counts()
     x = torch.randn(1, 4, 8, 8)
