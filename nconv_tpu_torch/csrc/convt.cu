@@ -5,21 +5,44 @@
 //   out[co, oy, ox] = sum over ci and taps with oy = 2*iy - 1 + ky,
 //                     ox = 2*ix - 1 + kx of x[ci, iy, ix] * w[ci, co, ky, kx]
 //
-// written as a direct gather: output row oy takes ky in {(oy+1)%2, +2}, so
-// each output pixel sums a 2x2 set of input taps per input channel. The
-// input is a list of parts (UpCat's [depth | fusion] concat stays two
-// tensors).
+// The input is a list of parts (UpCat's [depth | fusion] concat stays two
+// tensors). Replaces the d2s_channels form of
+// nconv_tpu/ops/pallas_conv.py:_kernel (reached through models/layers.py
+// Basic2dTrans._phased_bhcw), which phase-stacks the output channels and
+// interleaves them with selection matmuls; neither is needed where strided
+// stores are native.
 //
-// Replaces the d2s_channels form of nconv_tpu/ops/pallas_conv.py:_kernel
-// (reached through models/layers.py Basic2dTrans._phased_bhcw), which
-// phase-stacks the output channels and interleaves them with selection
-// matmuls; neither is needed where strided stores are native.
+// By output parity the 2x2 output quad of input pixel (m, n) takes each of
+// the 16 taps once, from the 3x3 input neighbourhood:
 //
-// Bound on the H100: each input value feeds 4 taps x Cout outputs, about
-// 2*Cout FMAs per output byte at Cout 32-64, close to the f32 ridge. The
-// simple design stages a (TH/2+2) x (TW/2+2) input tile and the weights of
-// 16 input channels in shared memory and keeps COT output channels of a
-// pixel in registers.
+//   (2m + p, 2n + q) <- x[m - 1 + dr][n - 1 + dc] w[ky][kx], ky in {1, 3}
+//   at p = 0 and {0, 2} at p = 1 (kx alike by q), dr = 2 - (ky + 1) / 2
+//
+// so no thread skips a tap and no warp diverges on the output parity.
+//
+// Bound on the H100: operations (4 cin FMAs an output, f32 CUDA cores).
+// Design, output-stationary (nct::t4, the family of nct::t3 below and of
+// conv.cu's convkxk_kernel):
+//  * A block covers R input rows x 32 quads (2R x 64 outputs) and a group
+//    of at most 32 output channels (balanced groups: UpCat's 64 in two, so
+//    x is staged twice a call): warp (input row, slab of 16 channels), lane
+//    (pair of quads, group of CO = 8 channels), 8 warps. Per input channel
+//    a thread loads 3 x 4 x values and 16 weight rows of 8 as float4
+//    broadcasts for 16 x 2 x 8 = 256 FMAs. Its registers are held to two
+//    blocks an SM (128).
+//  * runtime/plan_probe.py timed this plan against groups of 64 (x staged
+//    once), 4 quads a thread, registers for one block an SM, half the rows
+//    a block and 16-warp blocks of twice the rows; each lost in sum over
+//    the calls of an f32 frame and of an f32 guided step (PERF.md).
+//  * The channel loop runs over the real channels, in chunks of 8 that may
+//    straddle parts (the part looked up once a staged row). x rows (from 4
+//    columns before the tile: 16-byte copies where a part's rows allow,
+//    else 4-byte) and the weights, as [cc * 16 + tap][co] rows (common.cuh
+//    padded_row), are staged by cp.async two stages deep: chunk c + 1's
+//    copies fly while chunk c's FMAs run.
+//  * Bias and ReLU in the epilogue; each thread writes its 4 contiguous
+//    outputs of a row as a float4 where 2W % 4 == 0, else element by
+//    element.
 //
 // Below, a second form: the 3x3/s2/p1 transposed conv with output_padding 1
 // (no bias, f32; bf16 runs on the tensor cores, conv_tc.cu), the input
@@ -30,99 +53,196 @@
 
 namespace nct {
 
-constexpr int T_TW = 32, T_TH = 8, T_CIC = 16, T_THREADS = T_TW * T_TH;
+namespace t4 {
 
-struct ConvTArgs {
-  Part parts[MAX_PARTS];
+constexpr int QW = 32, PX = 2, CO = 8, PGW = QW / PX, SLAB = 32 / PGW * CO, CIC = 8, MOST = 32, MAX_WARPS = 8;
+constexpr int XS = 40;  // a staged x row: columns j0 - 4 .. j0 + 35, whole 16-byte vectors (the tile reads j0 - 1 .. j0 + 32)
+
+struct Args {
+  Part parts[MAX_PARTS];  // the input's channel concat, all (B, H, W)
+  int vec[MAX_PARTS];     // 1: the part's rows staged as 16-byte vectors
   int nparts, B, H, W, cin, cout, relu;
-  const float* w;     // (cin, cout, 4, 4)
-  const float* bias;  // (cout) or null
-  void* out;          // (B, cout, 2H, 2W), contiguous
+  int width, wst, ns, rows;  // output channels a group, a staged weight row (slabs x slab, padded_row), slabs, input rows a block
+  const float* w;            // (cin, cout, 4, 4)
+  const float* bias;         // (cout) or null
+  float* out;                // (B, cout, 2H, 2W), contiguous
 };
 
-template <typename Tin, typename Tout, int COT>
-__global__ void __launch_bounds__(T_THREADS) convt_kernel(const ConvTArgs a) {
-  constexpr int IH = T_TH / 2 + 2, IW = T_TW / 2 + 2;
-  __shared__ float xs[T_CIC][IH][IW];
-  __shared__ __align__(16) float ws[T_CIC * 16][COT];
+// one stage: the x rows of CIC channels (the block's rows and one above and
+// below), then CIC x 16 weight rows
+__host__ __device__ constexpr int xsz(int rows) { return CIC * (rows + 2) * XS; }
+__host__ __device__ constexpr int stage_size(int rows, int wst) { return xsz(rows) + CIC * 16 * wst; }
 
-  const int groups = (a.cout + COT - 1) / COT;
-  const int b = blockIdx.z / groups, co0 = (blockIdx.z % groups) * COT;
-  const int tx = threadIdx.x % T_TW, ty = threadIdx.x / T_TW;
-  const int ox = blockIdx.x * T_TW + tx, oy = blockIdx.y * T_TH + ty;
-  const int ho = 2 * a.H, wo = 2 * a.W;
-  const int iy0 = blockIdx.y * (T_TH / 2) - 1, ix0 = blockIdx.x * (T_TW / 2) - 1;
-  // taps: ky = kya + 2*dy reads input row (oy + 1 - ky) / 2 (always even)
-  const int kya = (oy + 1) & 1, kxa = (ox + 1) & 1;
-  int ly[2], lx[2];
-#pragma unroll
-  for (int d = 0; d < 2; ++d) {
-    ly[d] = (oy + 1 - kya - 2 * d) / 2 - iy0;
-    lx[d] = (ox + 1 - kxa - 2 * d) / 2 - ix0;
-  }
+__global__ void __launch_bounds__(32 * MAX_WARPS, 2) convt4x4s2_kernel(const Args a) {
+  NCT_DYN_SHARED(float, smem);
+  const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slab = warp % a.ns, row = warp / a.ns, pg = lane % PGW, cg = lane / PGW;
+  const int groups = (a.cout + a.width - 1) / a.width;
+  const int b = blockIdx.z / groups, co0 = (blockIdx.z % groups) * a.width;
+  const int co_end = co0 + a.width < a.cout ? co0 + a.width : a.cout;
+  const int i0 = blockIdx.y * a.rows, j0 = blockIdx.x * QW, xr = a.rows + 2;
+  const int stage_sz = stage_size(a.rows, a.wst);
 
-  float acc[COT];
-#pragma unroll
-  for (int j = 0; j < COT; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < a.cin; c0 += T_CIC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < T_CIC * IH * IW; i += T_THREADS) {
-      const int cc = i / (IH * IW), r = i % (IH * IW);
-      const int yy = r / IW, xx = r % IW, c = c0 + cc;
-      xs[cc][yy][xx] = c < a.cin ? load_parts<Tin>(a.parts, a.nparts, b, c,
-                                                   iy0 + yy, ix0 + xx, a.H, a.W)
-                                 : 0.f;
-    }
-    for (int i = threadIdx.x; i < T_CIC * 16 * COT; i += T_THREADS) {
-      const int j = i % COT, t = i / COT, cc = t / 16, k = t % 16;
-      const int co = co0 + j, c = c0 + cc;
-      ws[t][j] = (co < a.cout && c < a.cin)
-                     ? a.w[((long long)c * a.cout + co) * 16 + k]
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int cc = 0; cc < T_CIC; ++cc) {
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const float v = xs[cc][ly[dy]][lx[dx]];
-          const float* wk = ws[cc * 16 + (kya + 2 * dy) * 4 + kxa + 2 * dx];
-#pragma unroll
-          for (int j = 0; j < COT; ++j) acc[j] = fmaf(v, wk[j], acc[j]);
+  // input channels c0 .. c0 + CIC - 1 (up to cin) into stage buf
+  auto stage = [&](int c0, int buf) {
+    float* xs = smem + buf * stage_sz;
+    float* ws = xs + xsz(a.rows);
+    const int ncc = a.cin - c0 < CIC ? a.cin - c0 : CIC;
+    for (int u = warp; u < ncc * xr; u += nthr / 32) {
+      int c = c0 + u / xr;
+      const int y = i0 - 1 + u % xr, p = part_of(a.parts, a.nparts, c);
+      const Part& q = a.parts[p];
+      const bool live = y >= 0 && y < a.H;
+      const float* src = static_cast<const float*>(q.ptr) + (live ? b * q.sb + c * q.sc + y * q.sh : 0);
+      float* drow = xs + u * XS;
+      if (a.vec[p]) {  // whole vectors, in or out of the image (W % 4 == 0)
+        stage_row<4>(drow, src, j0 - 4, XS / 4, a.W, live, lane);
+      } else {
+        for (int x = lane; x < QW + 2; x += 32) {
+          const int col = j0 - 1 + x;
+          const bool in = live && col >= 0 && col < a.W;
+          cp_async4(smem_u32(drow + 3 + x), in ? src + col * q.sw : src, in ? 4 : 0);
         }
+      }
+    }
+    // w[c][co][tap]: an input channel's group of width x 16 is contiguous
+    for (int cc = 0; cc < ncc; ++cc) {
+      const float* wc = a.w + (static_cast<long long>(c0 + cc) * a.cout + co0) * 16;
+      for (int i = tid; i < a.wst * 16; i += nthr) {
+        const int j = i / 16, t = i % 16;
+        const bool in = co0 + j < co_end;
+        cp_async4(smem_u32(ws + (cc * 16 + t) * a.wst + j), in ? wc + i : a.w, in ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[2][2][PX][CO];  // [output row parity][output column parity][quad][channel]
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < PX; ++e)
+#pragma unroll
+        for (int k = 0; k < CO; ++k) acc[p][q][e][k] = 0.f;
+
+  const int wcol = slab * SLAB + cg * CO;  // the thread's first channel in a weight row
+  stage(0, 0);
+  cp_async_commit();
+  for (int c0 = 0; c0 < a.cin; c0 += CIC) {
+    const int buf = (c0 / CIC) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c0 staged; every warp is done with the previous chunk's stage
+    if (c0 + CIC < a.cin) {
+      stage(c0 + CIC, buf ^ 1);
+      cp_async_commit();
+    }
+    const float* xs = smem + buf * stage_sz + row * XS + 3 + PX * pg;
+    const float* ws = smem + buf * stage_sz + xsz(a.rows) + wcol;
+    const int ncc = a.cin - c0 < CIC ? a.cin - c0 : CIC;
+#pragma unroll 1
+    for (int cc = 0; cc < ncc; ++cc) {
+      float v[3][PX + 2];  // input rows i - 1 .. i + 1 at columns j - 1 .. j + PX
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int e = 0; e < PX + 2; ++e) v[d][e] = xs[(cc * xr + d) * XS + e];
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        // tap (ky, kx) feeds output (2i + p, 2j + q) from x[i - 1 + dr][j - 1 + dc]
+        const int ky = t / 4, kx = t % 4, p = 1 - (ky & 1), q = 1 - (kx & 1);
+        const int dr = 2 - (ky + 1) / 2, dc = 2 - (kx + 1) / 2;
+        float wv[CO];
+        load_w<CO>(ws + (cc * 16 + t) * a.wst, wv);
+#pragma unroll
+        for (int e = 0; e < PX; ++e)
+#pragma unroll
+          for (int k = 0; k < CO; ++k) acc[p][q][e][k] = fmaf(v[dr][e + dc], wv[k], acc[p][q][e][k]);
       }
     }
   }
 
-  if (oy >= ho || ox >= wo) return;
-  Tout* out = static_cast<Tout*>(a.out);
+  const int i = i0 + row, j = j0 + PX * pg;
+  if (i >= a.H || j >= a.W) return;
+  const int ho = 2 * a.H, wo = 2 * a.W;
+  const bool vec_out = (wo & 3) == 0 && j + PX <= a.W;  // whole float4s
 #pragma unroll
-  for (int j = 0; j < COT; ++j) {
-    const int co = co0 + j;
-    if (co < a.cout) {
-      float v = acc[j] + (a.bias ? a.bias[co] : 0.f);
-      if (a.relu) v = fmaxf(v, 0.f);
-      out[(((long long)b * a.cout + co) * ho + oy) * wo + ox] = from_f<Tout>(v);
+  for (int k = 0; k < CO; ++k) {
+    const int co = co0 + wcol + k;
+    if (co >= co_end) break;
+    const float bias = a.bias ? a.bias[co] : 0.f;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float o[2 * PX];  // the row's 2 PX outputs, in order
+#pragma unroll
+      for (int e = 0; e < PX; ++e)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float r = acc[p][q][e][k] + bias;
+          o[2 * e + q] = a.relu ? fmaxf(r, 0.f) : r;
+        }
+      float* dst = a.out + ((static_cast<long long>(b) * a.cout + co) * ho + 2 * i + p) * wo + 2 * j;
+      if (vec_out) {
+#pragma unroll
+        for (int e = 0; e < PX / 2; ++e)
+          reinterpret_cast<float4*>(dst)[e] = float4{o[4 * e], o[4 * e + 1], o[4 * e + 2], o[4 * e + 3]};
+      } else {
+#pragma unroll
+        for (int e = 0; e < PX; ++e)
+          if (j + e < a.W) dst[2 * e] = o[2 * e], dst[2 * e + 1] = o[2 * e + 1];
+      }
     }
   }
 }
 
-template <typename Tin, typename Tout, int COT>
-static int launch(const ConvTArgs& a, cudaStream_t st) {
-  const dim3 grid((2 * a.W + T_TW - 1) / T_TW, (2 * a.H + T_TH - 1) / T_TH,
-                  a.B * ((a.cout + COT - 1) / COT));
-  void (*k)(const ConvTArgs) = convt_kernel<Tin, Tout, COT>;
-  NCT_LAUNCH(k, grid, dim3(T_THREADS), 0, st, a);
+// The launch plan: groups of width output channels, ns slabs a group,
+// rows input rows a block (ns x rows warps).
+struct Plan {
+  int width, ns, rows;
+};
+
+inline Plan plan_of(int cout, int groups, int rows) {
+  const int width = (cout + groups - 1) / groups;
+  return {width, (width + SLAB - 1) / SLAB, rows};
+}
+
+// Balanced groups of at most 32 channels, 8 warps a block.
+inline Plan plan(int cout) {
+  const int groups = (cout + MOST - 1) / MOST;
+  return plan_of(cout, groups, MAX_WARPS / plan_of(cout, groups, 1).ns);
+}
+
+inline int run(Args& a, const Plan& p, cudaStream_t st) {
+  if (p.rows < 1 || p.ns * p.rows > MAX_WARPS) return static_cast<int>(cudaErrorInvalidValue);
+  a.width = p.width, a.ns = p.ns, a.rows = p.rows, a.wst = padded_row(p.ns * SLAB);
+  const int threads = 32 * a.ns * a.rows;
+  const size_t smem = 2 * sizeof(float) * stage_size(a.rows, a.wst);
+  void (*k)(const Args) = convt4x4s2_kernel;
+  int resident = 0;  // sets the kernel's shared-memory limit on this device
+  if (const int e = resident_blocks(k, threads, smem, resident)) return e;
+  const dim3 grid((a.W + QW - 1) / QW, (a.H + a.rows - 1) / a.rows, a.B * ((a.cout + a.width - 1) / a.width));
+  NCT_LAUNCH(k, grid, dim3(threads), smem, st, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-static int dispatch_cot(const ConvTArgs& a, cudaStream_t st) {
-  return a.cout >= 16 ? launch<T, T, 16>(a, st) : launch<T, T, 1>(a, st);
+// Host side: Args from the C entry's; false if the parts do not fit (an up2
+// part, channels that do not sum to cin).
+inline bool args_of(Args& a, const void* const* part_ptrs, const long long* part_meta, int nparts, int B, int H,
+                    int W, int cin, int cout, const float* w, const float* bias, void* out, int relu) {
+  if (nparts < 1 || nparts > MAX_PARTS || B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1) return false;
+  fill_parts(a.parts, part_ptrs, part_meta, nparts);
+  int c = 0;
+  for (int i = 0; i < nparts; ++i) {
+    if (a.parts[i].up2) return false;  // no caller reads an upsampled part through K3
+    c += a.parts[i].c;
+    a.vec[i] = W % 4 == 0 && vec_rows<4>(a.parts[i]);
+  }
+  a.nparts = nparts, a.B = B, a.H = H, a.W = W, a.cin = cin, a.cout = cout, a.relu = relu;
+  a.w = w, a.bias = bias, a.out = static_cast<float*>(out);
+  return c == cin;
 }
+
+}  // namespace t4
 
 // ---------------------------------------------------------------------------
 // 3x3/s2/p1 transposed conv, output_padding 1, no bias, weight (cin, cout,
@@ -340,25 +460,17 @@ inline int run(Args& a, const Plan& p, cudaStream_t st) {
 
 }  // namespace nct
 
-// Plain C entry; input and output f32 (the bf16 form runs on the tensor
-// cores, conv_tc.cu).
-extern "C" int nct_conv_transpose4x4s2(const void* const* part_ptrs,
-                                       const long long* part_meta, int nparts,
-                                       int dtype, int B, int H, int W, int cin,
-                                       int cout, const float* w,
-                                       const float* bias, void* out, int relu,
-                                       void* stream) {
+// Plain C entry (nct::t4); parts: n pointers + 6 n metadata (see
+// nct::fill_parts), all (B, H, W), none read upsampled, of storage type
+// dtype, which must be F32 (bf16: mode 2 of nct_conv_tc), as the output.
+extern "C" int nct_conv_transpose4x4s2(const void* const* part_ptrs, const long long* part_meta, int nparts,
+                                       int dtype, int B, int H, int W, int cin, int cout, const float* w,
+                                       const float* bias, void* out, int relu, void* stream) {
   using namespace nct;
-  if (nparts < 1 || nparts > MAX_PARTS)
+  t4::Args a{};
+  if (dtype != F32 || !t4::args_of(a, part_ptrs, part_meta, nparts, B, H, W, cin, cout, w, bias, out, relu))
     return static_cast<int>(cudaErrorInvalidValue);
-  ConvTArgs a{};
-  fill_parts(a.parts, part_ptrs, part_meta, nparts);
-  a.nparts = nparts;
-  a.B = B, a.H = H, a.W = W, a.cin = cin, a.cout = cout, a.relu = relu;
-  a.w = w, a.bias = bias, a.out = out;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32) return dispatch_cot<float>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);  // bf16: conv_tc.cu
+  return t4::run(a, t4::plan(cout), static_cast<cudaStream_t>(stream));
 }
 
 // Plain C entry of the 3x3/s2 form (nct::t3): one input part (B, cin, h, w)

@@ -51,7 +51,7 @@ build_seconds: float | None = None  # wall time of this process's build, if it b
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (all return int: cudaGetLastError(), or for
-    # nct_filtergrad_tiles / nct_wgrad_slices / nct_wgrad_tc_slices the row
+    # nct_filtergrad_slices / nct_wgrad_slices / nct_wgrad_tc_slices the row
     # count of K5's / K6's partial-sum buffer)
     "nct_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, P],
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
@@ -62,7 +62,7 @@ _SIGNATURES = {
     "nct_conv_chain_tc": [P, I, I, I, I, I, I, P, P, P, P, I, P, P],
     "nct_conv_kxk": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_filtergrad": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
-    "nct_filtergrad_tiles": [I, I, I],
+    "nct_filtergrad_slices": [I, I, I, I, I, I, I],
     "nct_conv_transpose3x3s2": [P, P, I, I, I, I, I, I, P, P, P],
     "nct_wgrad": [P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_wgrad_slices": [I, I, I, I, I],

@@ -21,7 +21,8 @@ Fused layer ops, each a kernel on CUDA tensors and its ``*_plain`` twin
   * :func:`conv_transpose4x4s2` — K3: 4x4/s2/p1 transpose conv + bias +
     ReLU over parts; bf16 on the tensor cores (``csrc/conv_tc.cu``,
     ``conv_transpose_tc``), f32 on the CUDA cores (``csrc/convt.cu``,
-    ``conv_transpose``);
+    ``conv_transpose``: 2x2 output quads over up to 32 output channels a
+    block, the real channels staged two deep);
   * :func:`conv3x3_chain2` — K4: two 3x3 conv + bias + ReLU stages with
     the intermediate kept on chip; bf16 on the tensor cores
     (``csrc/conv_chain_tc.cu``, ``conv_chain_tc``), f32 on the CUDA cores
@@ -37,7 +38,9 @@ schedule except K5):
     ``csrc/conv_tc.cu`` reading the forward weight flipped as it stages it,
     counter ``conv_input_grad_tc``);
   * :func:`conv2d_weight_grad` — the weight cotangent of step 1's
-    stride-1 convs on K5 (``csrc/filtergrad.cu``);
+    stride-1 convs on K5 (``csrc/filtergrad.cu``, counter ``filtergrad``:
+    register tiles over the real (channel, dy) pairs, a dot form for the
+    1x1 cout-1 head, slices summed in a fixed order);
   * :func:`conv3x3s2_input_grad` — the input cotangent of a 3x3 stride-2
     conv, a 3x3/s2 transposed conv: f32 on K3's 3x3/s2 form
     (``csrc/convt.cu``, counter ``conv_transpose3x3s2``: 2x2 output quads
@@ -657,8 +660,11 @@ def _filtergrad_kernel(x, g, ksize, padding, pad_top):
     if x.dtype != torch.float32 or g.dtype != torch.float32:
         raise TypeError(f"K5 takes float32, got {x.dtype} and {g.dtype}")
     x, g = x.contiguous(), g.contiguous()
-    part = torch.empty((kernels.lib().nct_filtergrad_tiles(b, ho, wo), cout * cin * ksize * ksize),
-                       device=x.device)
+    with kernels.device_guard(x):  # the plan's slices fill x's card
+        slices = kernels.lib().nct_filtergrad_slices(b, cin, h, ho, wo, cout, ksize)
+    if slices < 1:
+        raise RuntimeError(f"filtergrad plan: CUDA error {-slices}")
+    part = torch.empty((slices, cout * cin * ksize * ksize), device=x.device)
     out = torch.empty((cout, cin, ksize, ksize), device=x.device)
     kernels.launch("filtergrad", "nct_filtergrad", out, x, g, b, cin, h, w, cout, ho, wo, ksize, pad_top, padding,
                    part, out)

@@ -7,19 +7,27 @@ K6's f32 form (``csrc/wgrad.cu``) picks a tile shape (MG, MR) by (M, N);
 K2's output-stationary kernel (``convkxk_kernel`` of ``csrc/conv.cu``), in
 its backward K x K form and its forward (plain and residual), picks channel
 groups (a small grid splits them) and a tile (B-F, H, P) by group width,
-form and stride; K3's f32 3x3/s2 form (``csrc/convt.cu``) is timed against
-its groups split in two; K1 (``csrc/nconv.cu``) picks the direct 1x1 form
-(D) for an unpooled 1x1, else the tiled form of its output channels (Q at
-8, T at 1); K4's f32 form (``csrc/chain.cu``) a tile (S, T) by its grid. This script drives one f32 guided train step (B = 1), one step-1
-train step (B = 4), one f32 and one mixed two-stream frame at KITTI
-352x1216 and records every call of the six kernels. Then, for each
-distinct call, it launches each tile the kernel has (and the unsplit
-groups) through a probe library that includes the sources unchanged and
-exports their ``run`` with a given plan, checks each against the plain
-version (1e-5 rel RMSE, each output of K1), and times them with CUDA
-events: ``rounds`` rounds of ``reps`` launches each, the
-candidates in a rotating order, reporting the median round and the spread
-(max - min) of the rounds.
+form and stride; K3's f32 3x3/s2 form (``csrc/convt.cu``, ``nct::t3``) is
+timed against its groups split in two, and its f32 4x4/s2 forward
+(``nct::t4``, groups of at most 32 channels) against groups of 64 and
+half the rows a block; K5 (``csrc/filtergrad.cu``) picks the dot form
+(D) for the 1x1 cout-1 head, else the tiled form at two channels a group
+where cin is even, g staged as stored where its rows are whole 16-byte
+vectors (else pixel-major) and one wave of blocks, timed against one
+channel a group, the other g layout and two waves; K1 (``csrc/nconv.cu``)
+picks the direct 1x1 form (D) for an unpooled 1x1, else the tiled form of
+its output channels (Q at 8, T at 1); K4's f32 form (``csrc/chain.cu``) a
+tile (S, T) by its grid.
+This script drives one f32 guided train step (B = 1), one step-1 train
+step (B = 4), one f32 and one mixed two-stream frame at KITTI 352x1216
+and records every call of the eight kernels. Then, for each distinct
+call, it launches each tile the kernel has (and the unsplit groups)
+through a probe library that includes the sources unchanged and exports
+their ``run`` with a given plan, checks each against the plain version
+(1e-5 rel RMSE, each output of K1), and times them with CUDA events:
+``rounds`` rounds of ``reps`` launches each, the candidates in a rotating
+order, reporting the median round and the spread (max - min) of the
+rounds.
 
 Prints a line per call and, per plan branch, the sums over the calls that
 take it (times their count per step) of the plan's time and of each
@@ -108,7 +116,7 @@ extern "C" int probe_conv3x3(const void* const* part_ptrs, const long long* part
 }
 """
 
-_T3_PROBE = r"""
+_CONVT_PROBE = r"""
 #include "convt.cu"
 extern "C" int probe_t3_plan(int B, int h, int w, int cout) {
   const nct::t3::Plan p = nct::t3::plan(cout);
@@ -122,6 +130,44 @@ extern "C" int probe_t3(const void* const* x_ptr, const long long* x_meta, int B
   a.vec = w % 4 == 0 && vec_rows<4>(a.g);
   a.B = B, a.h = h, a.w = w, a.cin = cin, a.cout = cout, a.wt = wt, a.out = static_cast<float*>(out);
   return t3::run(a, t3::plan_of(cout, groups, rows), static_cast<cudaStream_t>(stream));
+}
+extern "C" int probe_t4_plan(int cout) {
+  const nct::t4::Plan p = nct::t4::plan(cout);
+  return 256 * ((cout + p.width - 1) / p.width) + p.rows;
+}
+extern "C" int probe_t4_ns(int cout, int groups) { return nct::t4::plan_of(cout, groups, 1).ns; }
+extern "C" int probe_t4(const void* const* part_ptrs, const long long* part_meta, int nparts, int B, int H, int W,
+                        int cin, int cout, const float* w, const float* bias, void* out, int relu, int groups, int rows,
+                        void* stream) {
+  using namespace nct;
+  t4::Args a{};
+  if (!t4::args_of(a, part_ptrs, part_meta, nparts, B, H, W, cin, cout, w, bias, out, relu))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return t4::run(a, t4::plan_of(cout, groups, rows), static_cast<cudaStream_t>(stream));
+}
+"""
+
+_FG_PROBE = r"""
+#include "filtergrad.cu"
+extern "C" int probe_fg_plan(int B, int cin, int H, int ho, int wo, int cout, int ksize) {
+  nct::fg::Plan q;
+  return nct::fg::plan(q, B, cin, H, ho, wo, cout, ksize) ? -1 : 65536 * q.pm + 256 * q.p + q.form;
+}
+extern "C" int probe_fg_slices(int B, int cin, int H, int ho, int wo, int cout, int ksize, int form, int p, int pm,
+                               int waves) {
+  nct::fg::Plan q;
+  const int e = nct::fg::plan_of(q, B, cin, H, ho, wo, cout, ksize, static_cast<char>(form), p, pm, waves);
+  return e ? -e : q.slices;
+}
+extern "C" int probe_fg(const float* x, const float* g, int B, int cin, int H, int W, int cout, int ho, int wo,
+                        int ksize, int pad_top, int pad_left, float* part, float* out, int form, int p, int pm,
+                        int waves, void* stream) {
+  using namespace nct;
+  fg::Plan q;
+  if (!fg::takes(B, cin, H, W, cout, ho, wo, ksize, pad_top, pad_left)) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int e = fg::plan_of(q, B, cin, H, ho, wo, cout, ksize, static_cast<char>(form), p, pm, waves)) return e;
+  return fg::run(x, g, B, cin, H, W, cout, ho, wo, ksize, pad_top, pad_left, part, out, q,
+                 static_cast<cudaStream_t>(stream));
 }
 """
 
@@ -171,6 +217,12 @@ _PROBE_SIGNATURES = {
     "probe_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, I, I, P],
     "probe_t3_plan": [I, I, I, I],
     "probe_t3": [P, P, I, I, I, I, I, P, P, I, I, P],
+    "probe_t4_plan": [I],
+    "probe_t4_ns": [I, I],
+    "probe_t4": [P, P, I, I, I, I, I, I, P, P, P, I, I, I, P],
+    "probe_fg_plan": [I, I, I, I, I, I, I],
+    "probe_fg_slices": [I, I, I, I, I, I, I, I, I, I, I],
+    "probe_fg": [P, P, I, I, I, I, I, I, I, I, I, I, P, P, I, I, I, I, P],
     "probe_nconv_plan": [I, I, I],
     "probe_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, I, P],
     "probe_chain_plan": [I, I, I, I, I],
@@ -204,12 +256,13 @@ def _check(code, what):
 
 
 def _start_build():
-    """nvcc for the five probe sources, started now; returns a function that
+    """nvcc for the six probe sources, started now; returns a function that
     waits for them, links and loads the library."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = kernels._nvcc()
     objs, procs = [], []
-    for name, text in (("probe_wgrad", _WGRAD_PROBE), ("probe_kxk", _KXK_PROBE), ("probe_t3", _T3_PROBE),
+    for name, text in (("probe_wgrad", _WGRAD_PROBE), ("probe_kxk", _KXK_PROBE), ("probe_convt", _CONVT_PROBE),
+                       ("probe_fg", _FG_PROBE),
                        ("probe_nconv", _NCONV_PROBE), ("probe_chain", _CHAIN_PROBE)):
         src = kernels.BUILD_DIR / f"{name}.cu"
         src.write_text(text)
@@ -239,10 +292,10 @@ def _sig(t):
 
 
 def _record_calls():
-    """Every K6 f32, K x K f32, K2 f32 forward, 3x3/s2 f32, K1 and K4 f32
-    call of one guided f32 step, one step-1 step, one f32 frame and one
-    mixed frame: {(kind, step, key): [count, args]}, args the first call's
-    tensors."""
+    """Every K6 f32, K x K f32, K2 f32 forward, 3x3/s2 f32, 4x4/s2 f32
+    forward, K5, K1 and K4 f32 call of one guided f32 step, one step-1
+    step, one f32 frame and one mixed frame: {(kind, step, key): [count,
+    args]}, args the first call's tensors."""
     calls = {}
     step_name = []
 
@@ -253,6 +306,7 @@ def _record_calls():
     real_wg, real_kx = convops._wgrad_kernel, convops._conv_kxk_kernel
     real_cv, real_t3 = convops._conv3x3_kernel, convops._conv_transpose3x3s2_kernel
     real_nc, real_ch = nconv._nconv2d_kernel, convops._chain_kernel
+    real_t4, real_fg = convops._conv_transpose_kernel, convops._filtergrad_kernel
 
     def wg(x_parts, g_parts, ksize, stride, padding):
         note("wgrad", (tuple(map(_sig, x_parts)), tuple(map(_sig, g_parts)), ksize, stride, padding),
@@ -283,6 +337,14 @@ def _record_calls():
         note("chain", (_sig(x), _sig(w1), _sig(w2)), (x, w1, b1, w2, b2))
         return real_ch(x, w1, b1, w2, b2)
 
+    def t4(parts, weight, bias, relu):
+        note("t4", (tuple(map(_sig, parts)), _sig(weight), bias is None, relu), (parts, weight, bias, relu))
+        return real_t4(parts, weight, bias, relu)
+
+    def fg(x, g, ksize, padding, pad_top):
+        note("fg", (_sig(x), _sig(g), ksize, padding, pad_top), (x, g, ksize, padding, pad_top))
+        return real_fg(x, g, ksize, padding, pad_top)
+
     for name, run in (("guided", lambda: _train_step("guided", torch.float32, 352, 1216)),
                       ("step1", lambda: _train_step("unguided", torch.float32, 352, 1216)),
                       ("frame", lambda: _request(torch.float32, 352, 1216)),
@@ -293,7 +355,8 @@ def _record_calls():
         torch.cuda.synchronize()
         with ExitStack() as stack:
             for attr, fn in (("_wgrad_kernel", wg), ("_conv_kxk_kernel", kx), ("_conv3x3_kernel", cv),
-                             ("_conv_transpose3x3s2_kernel", t3), ("_chain_kernel", ch)):
+                             ("_conv_transpose3x3s2_kernel", t3), ("_chain_kernel", ch),
+                             ("_conv_transpose_kernel", t4), ("_filtergrad_kernel", fg)):
                 stack.enter_context(mock.patch.object(convops, attr, fn))
             stack.enter_context(mock.patch.object(nconv, "_nconv2d_kernel", nc))
             step()
@@ -445,6 +508,78 @@ def _t3_candidates(lib, args):
     return f"T/{groups}g", cands, want, f"[{b}, {cout}, {2 * h}, {2 * w}] from {cin}"
 
 
+def _t4_candidates(lib, args):
+    parts, weight, bias, relu = args
+    b, h, w = convops._check_same_geometry(parts)
+    cin, cout = weight.shape[:2]
+    code = lib.probe_t4_plan(cout)
+    groups, rows = code // 256, code % 256
+    ptrs, meta = kernels.part_args(parts, [False] * len(parts))
+    stream = kernels.stream_of(parts[0])
+    wc, bc = weight.detach().float().contiguous(), None if bias is None else bias.detach().float().contiguous()
+    # the plan, groups of 64 (x staged once), and half the rows a block
+    options = [(groups, rows)]
+    for gr in (groups, -(-cout // 64)):
+        ns = lib.probe_t4_ns(cout, gr)
+        for r in (8 // ns, 4 // ns):
+            if r >= 1 and (gr, r) not in options:
+                options.append((gr, r))
+    cands = []
+    for gr, r in options:
+        out = torch.empty((b, cout, 2 * h, 2 * w), device="cuda")
+
+        def fn(out=out, gr=gr, r=r):
+            code = lib.probe_t4(ptrs, meta, len(parts), b, h, w, cin, cout, wc.data_ptr(),
+                                None if bc is None else bc.data_ptr(), out.data_ptr(), int(relu), gr, r, stream)
+            _check(code, f"probe_t4 ({gr}, {r})")
+            return out
+        cands.append((f"{gr}g/{r}r", fn))
+    want = lambda: convops.conv_transpose4x4s2_plain(parts, weight, bias, relu=relu)
+    return f"{groups}g/{rows}r", cands, want, f"[{b}, {cout}, {2 * h}, {2 * w}] from {cin}"
+
+
+def fg_branches(k, cin, cout):
+    """K5's branches at (k, cin, cout): (form, channels a group, g
+    pixel-major, waves of blocks). The tiled form T at one and (even cin)
+    two channels a group, g pixel-major and (cout 8) as stored, at one and
+    two waves; at the 1x1 cout-1 head also the dot form D."""
+    ps = (1, 2) if cin % 2 == 0 else (1,)
+    pms = (1, 0) if cout == 8 else (0,)
+    out = [("T", p, pm, w) for p in ps for pm in pms for w in (1, 2)]
+    return out + ([("D", 0, 0, 1)] if k == 1 and cout == 1 else [])
+
+
+def fg_name(form, p, pm, waves):
+    return f"{form}{p}{'p' * pm}/w{waves}"
+
+
+def _fg_candidates(lib, args):
+    x, g, ksize, padding, pad_top = args
+    b, cin, h, w = x.shape
+    cout, ho, wo = g.shape[1:]
+    code = lib.probe_fg_plan(b, cin, h, ho, wo, cout, ksize)
+    plan = (chr(code % 256), code // 256 % 256, code // 65536 if cout == 8 else 0, 1)
+    # the recorded operands' weight cotangents cancel (a normalized conv's
+    # scale invariance), so the candidates run on random ones of their shapes
+    gen = torch.Generator(device="cuda").manual_seed(cin + 10 * ksize)
+    xc, gc = (torch.randn(t.shape, generator=gen, device="cuda") for t in (x, g))
+    stream = kernels.stream_of(x)
+    cands = []
+    for form, p, pm, waves in fg_branches(ksize, cin, cout):
+        slices = lib.probe_fg_slices(b, cin, h, ho, wo, cout, ksize, ord(form), p, pm, waves)
+        part = torch.empty((slices, cout * cin * ksize * ksize), device="cuda")
+        out = torch.empty((cout, cin, ksize, ksize), device="cuda")
+
+        def fn(part=part, out=out, form=form, p=p, pm=pm, waves=waves):
+            code = lib.probe_fg(xc.data_ptr(), gc.data_ptr(), b, cin, h, w, cout, ho, wo, ksize, pad_top, padding,
+                                part.data_ptr(), out.data_ptr(), ord(form), p, pm, waves, stream)
+            _check(code, f"probe_fg ({form}, {p}, {pm}, {waves})")
+            return out
+        cands.append((fg_name(form, p, pm, waves), fn))
+    want = lambda: convops.conv2d_weight_grad_plain(xc, gc, ksize, padding, pad_top)
+    return fg_name(*plan), cands, want, f"[{cout}, {cin}, {ksize}, {ksize}] at {ho}x{wo} B={b}"
+
+
 def _nconv_candidates(lib, args):
     d, c, weight, bias, padding, up2, crop, pool_out, eps = args
     b, h, w = nconv._check_parts(d, c, up2)
@@ -515,7 +650,8 @@ def main(argv=None) -> dict:
             kind, step = key[:2]
             plan, cands, want, label = {"wgrad": _wgrad_candidates, "conv": _conv_candidates,
                                         "t3": _t3_candidates, "nconv": _nconv_candidates,
-                                        "chain": _chain_candidates}.get(kind, _kxk_candidates)(lib, cargs)
+                                        "chain": _chain_candidates, "t4": _t4_candidates,
+                                        "fg": _fg_candidates}.get(kind, _kxk_candidates)(lib, cargs)
             ref = want()
             errs = {}
             for name, fn in list(cands):
@@ -552,7 +688,7 @@ def _branches(rows):
     for r in rows:
         kernel = {"conv": "fwd"}.get(r["kernel"], r["kernel"])
         branch = r["plan"]
-        if kernel in ("nconv", "chain"):  # by path: the four paths' K1 calls differ in batch and in form
+        if kernel in ("nconv", "chain", "t4", "fg"):  # by path: the paths' calls differ in batch and in form
             branch = f"{branch} ({r['step']})"
         elif kernel != "wgrad":  # candidates named tile/groups: the tile and whether the plan split its groups
             tile, g = r["plan"].split("/")
@@ -563,7 +699,7 @@ def _branches(rows):
     out = []
     for (kernel, branch), rs in groups.items():
         disp = {}
-        if kernel in ("wgrad", "nconv", "chain"):
+        if kernel in ("wgrad", "nconv", "chain", "t4", "fg"):
             names = set.intersection(*(set(r["ms"]) - {r["plan"]} for r in rs))
             for n in sorted(names):
                 disp[n] = {"ms": sum(r["count"] * r["ms"][n] for r in rs),

@@ -283,6 +283,26 @@ def test_plain_transpose_conv_rounds_weights_as_jax_bf16(chans, h, w):
     _contract(port, rounded, unrounded, want)
 
 
+@pytest.mark.parametrize("chans,h,w", [((1, 64), 5, 7), ((1, 32), 4, 6)])
+def test_plain_transpose_conv_matches_pallas_f32(chans, h, w):
+    """K3's f32 plain version, which the 4x4/s2 f32 kernel is held to, on
+    UpCat's [depth | fusion] parts against the Pallas transpose conv
+    (interpret mode) at 1e-5."""
+    jax, jnp, pltpu, _, pallas_s2 = _jax()
+    rng = np.random.default_rng(100 + sum(chans) + h)
+    f = chans[1]
+    parts = [rng.standard_normal((2, h, c, w)).astype(np.float32) for c in chans]
+    k = (rng.standard_normal((4, 4, sum(chans), f)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(f).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas_s2.convtranspose2d_s2_pallas_bhcw([jnp.asarray(p) for p in parts], jnp.asarray(k),
+                                                                   jnp.asarray(b)))
+    got = ops.conv_transpose4x4s2_plain([bhcw_to_nchw(p) for p in parts], hwio_to_iohw(k), torch.from_numpy(b),
+                                        relu=False)
+    assert got.dtype == torch.float32 and got.shape == (2, f, 2 * h, 2 * w)
+    assert rel(nchw_to_bhcw(got), want) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # The residual form's backward against the Pallas custom VJP
 # ---------------------------------------------------------------------------

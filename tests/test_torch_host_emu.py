@@ -1,28 +1,36 @@
 """K6's f32 weight cotangent (``csrc/wgrad.cu``), K2's f32 output-stationary
 kernel (``csrc/conv.cu``, ``convkxk_kernel``: the backward's K x K form and
-the forward) and K3's f32 3x3/s2 form (``csrc/convt.cu``) run on the CPU
-under the host emulation of the CUDA launch model (``csrc/host_emu.h``).
+the forward) and K3's f32 forms (``csrc/convt.cu``: the 4x4/s2 forward and
+the 3x3/s2 input gradient) run on the CPU under the host emulation of the
+CUDA launch model (``csrc/host_emu.h``).
 
-The three sources are compiled with ``g++ -x c++ -std=c++20 -include
-host_emu.h`` into a shared library, which takes the kernel library's place
-while the public wrappers run on CPU tensors as on the card: each launch
-goes through the real C entry, plan and kernel, its blocks one after
-another, each CUDA thread a fiber on one host thread, ``__syncthreads`` a
-barrier of the block's fibers, ``cp.async`` a synchronous copy with a zero
-fill, and the dynamic shared memory poisoned with NaN bytes before each
-block. Every plan branch is held
-to its plain version at 1e-5 rel RMSE at shapes of a few blocks: K6's tile
-shapes (M = 1, N < 45 at M <= 32 and above, M <= 32, M > 32 in tiles of 64
-and of 40), its three forms, multi-part operands, a channel-offset view,
-rows read as 16-byte vectors and not; the K x K form's tile shapes (up to
-8 and 16 channels, one to four slabs of 32 (tile P), more in balanced groups, a
+The three sources (``convt.cu`` through the probe source of
+``runtime/plan_probe.py``, which includes it unchanged and adds entries
+that launch a given plan) are compiled with ``g++ -x c++ -std=c++20
+-include host_emu.h`` into a shared library, which takes the kernel
+library's place while the public wrappers run on CPU tensors as on the
+card: each launch goes through the real C entry, plan and kernel, its
+blocks one after another, each CUDA thread a fiber on one host thread,
+``__syncthreads`` a barrier of the block's fibers, ``cp.async`` a
+synchronous copy with a zero fill, and the dynamic shared memory poisoned
+with NaN bytes before each block. Every plan branch is held to its plain
+version at 1e-5 rel RMSE at shapes of a few blocks: K6's tile shapes (M =
+1, N < 45 at M <= 32 and above, M <= 32, M > 32 in tiles of 64 and of 40),
+its three forms, multi-part operands, a channel-offset view, rows read as
+16-byte vectors and not; the K x K form's tile shapes (up to 8 and 16
+channels, one to four slabs of 32 (tile P), more in balanced groups, a
 small grid's narrower groups), K 1 / 3 / 5 at stride 1 with the forward
 weight read flipped, and 4x4 at stride 2; the forward's (stride 1 and 2,
 one to four parts, a uint8 NHWC part, the residual epilogue, cin 1 and 3,
-the cout-1 tile, 33 / 64 / 128 outputs, the small-grid split); the 3x3/s2
-form's (32, 33, 64 and 128 outputs). Skips only where g++ is
-absent. The forward's and the 3x3/s2 form's cases also run on the card
-(``cuda``-marked, skipped without one):
+the cout-1 tile, 33 / 64 / 128 outputs, the small-grid split); the 4x4/s2
+forward's (UpCat's [1 | 32] and [1 | 64] parts with their cin 33 and 65
+tails, one part, a chunk straddling parts, cout 20, 24, 32, 64 and 80 in
+groups of at most 32, W a multiple of 4 and not, B 1 and 2, bias and ReLU on and
+off; through the probe entry groups of 64 and half the rows a block);
+the 3x3/s2 form's (32, 33, 64 and 128 outputs).
+Skips only where g++ is absent. The forward's, the 4x4/s2 forward's and
+the 3x3/s2 form's cases also run on the card (``cuda``-marked, skipped
+without one):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_host_emu.py
 """
@@ -37,6 +45,7 @@ import torch
 
 from nconv_tpu_torch import kernels, ops
 from nconv_tpu_torch.ops import convops
+from nconv_tpu_torch.runtime import plan_probe
 
 BAR = 1e-5  # f32 sums in another order than the plain versions
 
@@ -50,15 +59,17 @@ def emu(tmp_path_factory):
     for stub in ("cuda_runtime.h", "cuda_bf16.h"):  # host_emu.h defines what the sources use of them
         (d / stub).write_text("")
     so = d / "emu.so"
-    objs = [d / f"{name}.o" for name in ("wgrad", "conv", "convt")]
-    builds = [subprocess.Popen([gxx, "-x", "c++", "-std=c++20", "-O1", "-fPIC", f"-I{d}", "-include",
-                                str(kernels.CSRC / "host_emu.h"), "-c", str(kernels.CSRC / f"{o.stem}.cu"),
-                                "-o", str(o)], stderr=subprocess.PIPE, text=True) for o in objs]
+    (d / "probe_convt.cu").write_text(plan_probe._CONVT_PROBE)  # convt.cu and its probe entries
+    srcs = [kernels.CSRC / "wgrad.cu", kernels.CSRC / "conv.cu", d / "probe_convt.cu"]
+    objs = [d / f"{src.stem}.o" for src in srcs]
+    builds = [subprocess.Popen([gxx, "-x", "c++", "-std=c++20", "-O1", "-fPIC", f"-I{d}", f"-I{kernels.CSRC}",
+                                "-include", str(kernels.CSRC / "host_emu.h"), "-c", str(src), "-o", str(o)],
+                               stderr=subprocess.PIPE, text=True) for src, o in zip(srcs, objs)]
     for b in builds:
         assert b.wait() == 0, b.stderr.read()
     subprocess.run([gxx, "-shared", *map(str, objs), "-o", str(so)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in kernels._SIGNATURES.items():
+    for name, argtypes in {**kernels._SIGNATURES, **plan_probe._PROBE_SIGNATURES}.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
@@ -250,6 +261,102 @@ def test_3x3s2_input_grad_matches_plain_version(where, cin, cout, b, h, w, view)
         assert kernels.launch_counts()["conv_transpose3x3s2"] == 1
     want = ops.conv3x3s2_input_grad_plain(cot, wt)
     assert got.shape == want.shape == (b, cout, 2 * h, 2 * w) and _rel(got, want) <= BAR
+
+
+# (part channels, cout, bias, relu, b, h, w): K3's f32 4x4/s2 forward
+# (nct::t4) through the public wrapper; "view7" is a channel-offset view
+_T4 = [
+    ((1, 32), 32, True, True, 2, 6, 36),     # UpCat's [1 | 32]: a cin 33 tail, two slabs, 4 rows a block; 16-byte rows
+    ((1, 64), 64, True, True, 1, 5, 40),     # [1 | 64]: a cin 65 tail, two groups of 32; B 1
+    ((1, 64), 64, False, False, 2, 3, 37),   # no bias, no ReLU; W not a multiple of 4: element copies and stores
+    ((17,), 20, True, True, 2, 4, 33),       # one part; cout not a multiple of 8
+    ((5, "view7"), 24, True, False, 1, 5, 24),  # a chunk straddling parts; a channel-offset view
+    ((3, 3), 80, True, True, 1, 3, 20),      # three balanced groups of 27
+]
+
+
+@pytest.mark.parametrize("pc,cout,bias,relu,b,h,w", _T4)
+def test_4x4s2_forward_matches_plain_version(where, pc, cout, bias, relu, b, h, w):
+    dev, ctx = where
+    g = torch.Generator().manual_seed(600 + cout + len(pc) + h)
+    parts = [_r(g, b, 9, h, w)[:, 2:] if c == "view7" else _r(g, b, c, h, w) for c in pc]
+    cin = sum(p.shape[1] for p in parts)
+    wt = _r(g, cin, cout, 4, 4) * (4 * cin) ** -0.5
+    bt = _r(g, cout) if bias else None
+    parts = [p.to(dev) for p in parts]
+    wt, bt = wt.to(dev), None if bt is None else bt.to(dev)
+    with ctx():
+        kernels.reset_launch_counts()
+        got = ops.conv_transpose4x4s2(parts, wt, bt, relu=relu)
+        assert kernels.launch_counts()["conv_transpose"] == 1
+    want = convops.conv_transpose4x4s2_plain(parts, wt, bt, relu=relu)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (b, cout, 2 * h, 2 * w)
+    assert _rel(got, want) <= BAR
+
+
+@pytest.fixture(scope="module")
+def card_probe(tmp_path_factory):
+    """The convt.cu probe library, built with nvcc for the card."""
+    d = tmp_path_factory.mktemp("probe_convt")
+    (d / "probe_convt.cu").write_text(plan_probe._CONVT_PROBE)
+    nvcc = kernels._nvcc()
+    subprocess.run([nvcc, *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}", "-shared", str(d / "probe_convt.cu"), "-o",
+                    str(d / "probe.so")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(d / "probe.so"))
+    for name, argtypes in plan_probe._PROBE_SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+# (part channels, cout, b, h, w, (groups, input rows a block)): the 4x4/s2
+# forward's plan branches through the probe entry
+_T4_BRANCHES = [
+    ((1, 64), 64, 1, 5, 40, (1, 2)),   # one group of 64: four slabs, 2 rows a block
+    ((1, 64), 64, 2, 3, 37, (1, 1)),   # ... 1 row; ragged edges, element copies
+    ((1, 64), 64, 1, 5, 40, (2, 2)),   # groups of 32, half the rows
+    ((1, 32), 32, 2, 6, 36, (1, 2)),   # half the rows a block
+]
+
+
+@pytest.mark.parametrize("pc,cout,b,h,w,plan", _T4_BRANCHES)
+def test_4x4s2_forward_branches_match_plain_version(request, where, pc, cout, b, h, w, plan):
+    dev, _ = where
+    lib = request.getfixturevalue("card_probe" if dev.type == "cuda" else "emu")
+    g = torch.Generator().manual_seed(650 + cout + h)
+    parts = [_r(g, b, c, h, w).to(dev) for c in pc]
+    cin = sum(pc)
+    wt, bt = (_r(g, cin, cout, 4, 4) * (4 * cin) ** -0.5).to(dev), _r(g, cout).to(dev)
+    out = torch.empty((b, cout, 2 * h, 2 * w), device=dev)
+    ptrs, meta = kernels.part_args(parts, [False] * len(parts))
+    code = lib.probe_t4(ptrs, meta, len(parts), b, h, w, cin, cout, wt.data_ptr(), bt.data_ptr(), out.data_ptr(), 1,
+                        *plan, kernels.stream_of(out) if dev.type == "cuda" else 0)
+    assert code == 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    want = convops.conv_transpose4x4s2_plain(parts, wt, bt, relu=True)
+    assert _rel(out, want) <= BAR
+
+
+def test_4x4s2_forward_plan(emu):
+    """Balanced groups of at most 32 channels, 8 warps a block."""
+    plan = lambda cout: divmod(emu.probe_t4_plan(cout), 256)
+    assert plan(64) == (2, 4) and plan(32) == (1, 4) and plan(20) == (1, 4) and plan(80) == (3, 4)
+    assert plan(16) == (1, 8)
+
+
+def test_4x4s2_entry_refuses_what_it_cannot_take(emu):
+    """An upsampled part, channels that do not sum to cin, bf16: the entry
+    raises, nothing counted."""
+    x, w = torch.randn(1, 4, 4, 4), torch.randn(4, 8, 4, 4)
+    out = torch.empty(1, 8, 8, 8)
+    for up2, cin, dtype in ((True, 4, 0), (False, 5, 0), (False, 4, 1)):
+        ptrs, meta = kernels.part_args([x], [up2])
+        with emulated_card(emu), pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.launch("conv_transpose", "nct_conv_transpose4x4s2", out, ptrs, meta, 1, dtype, 1, 4, 4, cin, 8,
+                           w, None, out, 1)
+        assert kernels.launch_counts()["conv_transpose"] == 0
 
 
 def test_conv3x3_entry_refuses_an_upsampled_part(emu):

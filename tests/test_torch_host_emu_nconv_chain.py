@@ -46,11 +46,11 @@ _ERRORS = '#include <cuda_runtime.h>\nextern "C" const char* nct_error_string(in
 _SOURCES = {"probe_nconv": plan_probe._NCONV_PROBE, "probe_chain": plan_probe._CHAIN_PROBE, "errors": _ERRORS}
 
 
-def _build(d, compile_cmd, link_cmd):
+def _build(d, compile_cmd, link_cmd, sources=_SOURCES):
     """The probe sources (and nct_error_string) compiled in parallel in d
     and linked; returns the loaded library with its entries typed."""
     objs, procs = [], []
-    for name, text in _SOURCES.items():
+    for name, text in sources.items():
         src, obj = d / f"{name}.cu", d / f"{name}.o"
         src.write_text(text)
         objs.append(obj)

@@ -252,7 +252,7 @@ def test_thin_form_refuses_what_it_cannot_take():
 # The device guard (every wrapper) and make_guided_predict's mode
 # ---------------------------------------------------------------------------
 
-_SIZES = ("nct_filtergrad_tiles", "nct_wgrad_slices", "nct_wgrad_tc_slices")  # plan queries, not launches
+_SIZES = ("nct_filtergrad_slices", "nct_wgrad_slices", "nct_wgrad_tc_slices")  # plan queries, not launches
 
 
 class _StubLib:

@@ -81,8 +81,9 @@ def oihw_to_hwio(t):
 # ---------------------------------------------------------------------------
 
 # (k, padding, cin, cout): nconv2's 5x5 p2, nconv6's 3x3 p0, nconv7's 1x1 p2
-# (input-grad crop 2, filter-grad pad_bottom 2)
-GEOMETRIES = [(5, 2, 8, 8), (3, 0, 16, 8), (1, 2, 8, 1)]
+# (input-grad crop 2, filter-grad pad_bottom 2), nconv1's 5x5 p2 from one
+# channel
+GEOMETRIES = [(5, 2, 8, 8), (3, 0, 16, 8), (1, 2, 8, 1), (5, 2, 1, 8)]
 
 
 @pytest.mark.parametrize("k,p,cin,cout", GEOMETRIES)
