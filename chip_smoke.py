@@ -20,13 +20,31 @@ Phases (any failure raises and the script exits non-zero):
      K2's f32 forward (``conv``);
   3. the main path: ``StreamingEngine`` with random-init weights carried
      through BN folding, in f32 and in the mixed schedule, answering
-     two-stream requests of synthetic frames; outputs must be finite, zero
-     on the sensor border, and match the plain path on the card, both as a
-     whole and in their guided residual (output less the step-1 dense
-     depth); the mixed output must match the f32 plain path; and every
-     kernel must have been launched the expected number of times. Beside
-     those bars, both paths' distances from a float64 plain run of the same
-     weights, so that a crossing can be told from an error;
+     two-stream requests of synthetic frames, each a replay of the frame's
+     CUDA graph. (a) every result bitwise equal to the engine's eager frame
+     (``forward_staged``) on the same frame; (b) the capture's launch
+     counts one frame's, the counted run's (the engine's eager warm-up
+     frames and its capture; a replay launches without Python) that many
+     times over, and an eager pass's the same; (c) ten frames, ten
+     distinct results; outputs finite, zero on the sensor border, and
+     matching the plain path on the card, both as a whole and in their
+     guided residual (output less the step-1 dense depth); the mixed
+     output matching the f32 plain path; beside those bars, both paths'
+     distances from a float64 plain run of the same weights, so that a
+     crossing can be told from an error; (d) ``benchmark``'s ``device`` /
+     ``synced`` / ``e2e`` p50 / p90 beside the eager request's ``e2e``,
+     the busy share and kernel names of graphed requests from
+     ``runtime/profile.py``, the engine's peak memory;
+ 3b. the wires, mixed: a second build capturing the same launches; the COO
+     wire bitwise equal to the dense uint16 wire; yuv422 / yuv420 against
+     the dense wire on the JAX tests' natural-content frame (bars 1e-3 /
+     5e-3) and on the synthetic frames (5e-3), their new kernel call
+     (encoder 0 on ``conv_tc`` at cin 3) against its plain version; the
+     yuv420 + COO wire's three clocks; an overflowing COO capacity counted
+     and warned; ``run()`` over the frames in order and bitwise equal to
+     single calls, with its frames/s; the wire encoders' host times;
+     ``benchmark_throughput`` at batch 8 (B = 16), bf16, with every
+     distinct kernel call it makes against its plain version;
   4. step-1 training: ``Trainer(UnguidedTask(NConvUNet()))`` at full width
      on KITTI 352x1216, batch 4, adamw, on the JAX bench's synthetic batch.
      (a) the backward's kernels (K2's K x K form, K5) against their plain
@@ -664,8 +682,8 @@ def step1_dense(eng, frame):
     """The step-1 dense depth of both streams of ``frame``, (2, H, W, 1) f32."""
     import torch
 
-    depth = torch.cat([eng._decode_depth(eng._stage(d, 1)) for d in (frame[1], frame[3])])
-    return eng.model.step1(depth)[0].reshape(2, H, W, 1).float()
+    inputs = eng.decode(eng.stage(*frame))
+    return eng.model.step1(torch.cat([inputs[1], inputs[3]]))[0].reshape(2, H, W, 1).float()
 
 
 def readings(eng, frame, outs):
@@ -684,9 +702,9 @@ def readings_f64(eng, frame, model64):
     as its f64 values, which the u8 conv decodes to."""
     import torch
 
-    rgb = [eng._stage(frame[i], 3).double() for i in (0, 2)]
-    depth = [eng._decode_depth(eng._stage(frame[i], 1)).double() for i in (1, 3)]
-    out = torch.cat(model64.export(rgb[0], depth[0], rgb[1], depth[1]))
+    rgb0, d0, rgb1, d1 = (t.double() for t in eng.decode(eng.stage(*frame)))
+    out = torch.cat(model64.export(rgb0, d0, rgb1, d1))
+    depth = [d0, d1]
     dense = model64.step1(torch.cat(depth))[0].reshape(2, H, W, 1)
     return out, (out - dense)[:, 45:H - 45, 20:]
 
@@ -1019,6 +1037,331 @@ def guided_phase(g, dtype, f32=None):
 
 
 # ---------------------------------------------------------------------------
+# The served frame: the engine's CUDA graph, the wires, run(), throughput
+# ---------------------------------------------------------------------------
+
+SCHEDULES = {"f32": "float32", "mixed": "bfloat16"}
+# a frame whose RGB reaches the net in the compute dtype (a float32 or YUV
+# wire): in the mixed schedule encoder 0 leaves conv_thin for conv_tc
+PER_FRAME_FLOAT_RGB = {
+    "f32": PER_FRAME["f32"],
+    "mixed": {"nconv": 9, "conv_tc": 19, "conv_thin": 4, "conv_transpose_tc": 3, "conv_chain_tc": 4},
+}
+BENCH_FRAMES = 100  # benchmark(): device 10 windows of 10 frames, synced and e2e 25 each
+RUN_PASSES = 3  # run() is timed over the ten frames three times over
+COO_SMALL = 4096  # a COO capacity that the synthetic frames' ~21,400 points a stream overflow
+# rel RMSE against the dense wire on the JAX package's natural-content frame
+# (tests/test_runtime.py); on the noisy synthetic frames every YUV wire is
+# held to yuv420's bar
+YUV_BARS = {"yuv422": 1e-3, "yuv420": 5e-3}
+THROUGHPUT_B = 8  # benchmark_throughput's batch a stream (16 in the net)
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def natural_frame(depth):
+    """The smooth, luma-dominant RGB frame of the JAX package's YUV wire
+    tests (``tests/test_runtime.py``) at H x W, both streams, with
+    ``depth``."""
+    import numpy as np
+
+    i, j = np.mgrid[0:H, 0:W].astype(np.float32)
+    rgb = np.stack([100 + 50 * np.sin(i / 19), 100 + 50 * np.cos(j / 23), 90 + i / 4], -1).astype(np.float32)
+    return rgb, depth, rgb, depth
+
+
+def percentiles(lat_ms):
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(lat_ms, 50)), "p90_ms": float(np.percentile(lat_ms, 90)),
+            "n_frames": len(lat_ms), "clock": "host"}
+
+
+def eager_e2e(eng, frames, n):
+    """The eager request on the same tree, host clock to a synchronize:
+    encode, copy (:meth:`stage`) and the eager frame, every kernel launched
+    from Python."""
+    import torch
+
+    lat = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        eng.forward_staged(eng.stage(*frames[i % len(frames)]))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return percentiles(lat)
+
+
+def host_ms(fn, reps=REPS) -> float:
+    """Median host-clock ms of ``reps`` calls of a host function."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fresh_peak():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def serve_phase(state, frames, ref, ref64):
+    """Phase 3, per schedule: the engine built (eager warm-up frames, then
+    the capture) and ``N_REQUESTS`` requests served, each a graph replay,
+    with the launch counts of that run; the capture's counts; the graph
+    bitwise equal to the eager frame on every request, ten distinct
+    results; the bars against the plain path and the f64 run on the first
+    two frames; ``benchmark``'s three clocks beside the eager request's;
+    the busy share of a request from ``runtime/profile.py``; peak memory.
+    Returns (summary, launch counts of each counted run, capture counts)."""
+    import itertools
+
+    import torch
+
+    from nconv_tpu_torch import kernels
+    from nconv_tpu_torch.runtime import StreamingEngine, benchmark
+    from nconv_tpu_torch.runtime.profile import trace
+
+    summary, counted, captured = {}, {}, {}
+    for name in ("f32", "mixed"):
+        per = PER_FRAME[name]
+        fresh_peak()
+        # the main path's run: the warm-up frames and the capture launch
+        # through the wrappers; a replay launches the captured kernels
+        # without Python, so the requests add nothing here
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = StreamingEngine(state, height=H, width=W, compute_dtype=getattr(torch, SCHEDULES[name]))
+        build_s = time.perf_counter() - t0
+        outs = [eng(*f) for f in frames]
+        torch.cuda.synchronize()
+        counts = nonzero(kernels.launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        runs = eng.WARM_RUNS + 1
+        if eng.capture_counts != per or counts != {k: n * runs for k, n in per.items()}:
+            raise SystemExit(f"chip_smoke: {name}: capture launched {eng.capture_counts}, the run {counts}; "
+                             f"expected {per} and {runs} x that")
+        counted[name], captured[name] = counts, eng.capture_counts
+        kernels.reset_launch_counts()
+        eager = [eng.forward_staged(eng.stage(*f)) for f in frames]
+        torch.cuda.synchronize()
+        eager_counts = nonzero(kernels.launch_counts())
+        if eager_counts != {k: n * N_REQUESTS for k, n in per.items()}:
+            raise SystemExit(f"chip_smoke: {name}: the eager frames launched {eager_counts}")
+        bitwise = all(torch.equal(a, b) for o, e in zip(outs, eager) for a, b in zip(o, e))
+        distinct = all(not torch.equal(outs[i][s], outs[j][s]) for s in (0, 1)
+                       for i in range(N_REQUESTS) for j in range(i))
+        if not (bitwise and distinct):
+            raise SystemExit(f"chip_smoke: {name}: graph bitwise the eager frame {bitwise}, "
+                             f"{N_REQUESTS} distinct results {distinct}")
+        del eager
+        for o0, o1 in outs:
+            for o in (o0, o1):
+                if o.shape != (1, H, W, 1) or not torch.isfinite(o).all():
+                    raise SystemExit(f"chip_smoke: {name}: bad output {tuple(o.shape)}")
+                if o[:, :45].abs().max() != 0 or o[:, H - 45:].abs().max() != 0 or o[:, :, :20].abs().max() != 0:
+                    raise SystemExit(f"chip_smoke: {name}: sensor border is not zero")
+        got = [readings(eng, frames[i], outs[i]) for i in range(2)]
+        err = lambda r, j: max(rel_rmse(got[i][j], r[i][j]) for i in range(2))
+        # kernel path vs plain path: the output, and its guided residual
+        # (bf16 output rounding in the mixed schedule); mixed vs f32 plain
+        checks = {"kernel_vs_plain": (err(ref[name], 0), ENGINE_BAR),
+                  "residual_kernel_vs_plain": (err(ref[name], 1), ENGINE_BAR if name == "f32" else BF16_BAR)}
+        if name == "mixed":
+            checks["vs_f32_plain"] = (err(ref["f32"], 0), MIXED_BAR)
+        dist = lambda rd, j: max(rel_rmse(rd[i][j], ref64[name][i][j]) for i in range(2))
+        f64 = {path: {"output": dist(rd, 0), "residual": dist(rd, 1)}
+               for path, rd in (("kernel", got), ("plain", ref[name]))}
+        stats = {k: v.as_dict() for k, v in benchmark(
+            eng, n_frames=BENCH_FRAMES, warmup=10, frame_factory=lambda i: frames[i % len(frames)]).items()}
+        eager_stats = eager_e2e(eng, frames, BENCH_FRAMES // 4)
+        cycle = itertools.cycle(frames)
+        prof = trace(lambda: eng(*next(cycle)), N_REQUESTS)
+        summary[name] = dict(**{k: v for k, (v, _) in checks.items()}, vs_f64=f64, build_s=build_s,
+                             peak_bytes=peak, counts=counts, capture_counts=eng.capture_counts,
+                             graph_bitwise_eager=bitwise, distinct_results=distinct, benchmark=stats,
+                             eager_e2e=eager_stats, profile=prof)
+        missed = {k: v for k, v in checks.items() if v[0] > v[1]}
+        log(f"[{'FAIL' if missed else 'ok'}] engine {name}: {N_REQUESTS} requests through one CUDA graph, "
+            f"bitwise the eager frame on each, {N_REQUESTS} distinct results; "
+            + ", ".join(f"{k} {v:.2e} (bar {b:.0e})" for k, (v, b) in checks.items())
+            + f"; capture launches {eng.capture_counts}; the run's launches {counts} "
+            f"({eng.WARM_RUNS} eager warm-up frames + the capture); build {build_s:.2f} s, "
+            f"peak {peak / 2**20:.0f} MiB")
+        log(f"    engine {name} distance from the f64 plain run: "
+            + "; ".join(f"{path} path output {d['output']:.2e} residual {d['residual']:.2e}"
+                        for path, d in f64.items()))
+        log(f"    engine {name} ms per two-stream frame: "
+            + "; ".join(f"{k} p50 {v['p50_ms']:.3f} p90 {v['p90_ms']:.3f} ({v['clock']})" for k, v in stats.items())
+            + f"; eager request e2e p50 {eager_stats['p50_ms']:.3f} p90 {eager_stats['p90_ms']:.3f} (host)")
+        busy = prof["device_busy_share"]
+        top = list(prof["device_events_per_request"].items())[:6]
+        log(f"    engine {name} profile (runtime/profile.py, graphed requests): wall "
+            f"{prof['wall_ms_per_request']:.3f} ms, device busy {prof['device_busy_ms_per_request']} ms, "
+            f"share {busy}; device events a request {sum(prof['device_events_per_request'].values()):.1f}, "
+            f"the largest: " + "; ".join(f"{k[:60]} x{n:g}" for k, n in top))
+        if missed:
+            raise SystemExit(f"chip_smoke: engine {name} misses its bars: {missed}")
+        del eng, outs, got
+    return summary, counted, captured
+
+
+def wire_phase(state, frames, g, results, captured):
+    """Phase 3b, mixed schedule: a second build of the dense engine
+    captures the same launches; COO bitwise the dense wire; the YUV wires
+    against the dense wire (natural content: their bars; synthetic frames:
+    yuv420's bar), their conv_tc calls at cin 3 checked; the COO overflow
+    counted; ``run()`` in order and bitwise the single calls; the wire
+    encoders' host times; ``benchmark_throughput`` at batch 8, each of its
+    distinct kernel calls checked. Returns (summary, checked calls)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch.runtime import StreamingEngine, benchmark, benchmark_throughput, wires
+
+    def built(**kw):
+        fresh_peak()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # yuv420's accuracy warning
+            eng = StreamingEngine(state, height=H, width=W, compute_dtype=torch.bfloat16, **kw)
+        return eng, torch.cuda.max_memory_allocated()
+
+    def check_new(calls, label):
+        checked = {}
+        for key, count in calls.items():
+            if key in results or key in checked:
+                continue
+            res = check_call(key, g)
+            res.update(count=count, engine=label)
+            checked[key] = res
+            ok = res["err"] <= res["bar"]
+            log(f"[{'ok' if ok else 'FAIL'}] {key[0]:<15} {label} out {res['shape'][0]} rel_rmse {res['err']:.2e} "
+                f"(bar {res['bar']:.0e}) ms {res['ms']:.4f} plain {res['plain_ms']:.4f} lib "
+                f"{res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
+                f"bound {res['bound_ms']:.4f} ({res['bound_by']})")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {label}: {key[0]} disagrees with its plain version")
+        return checked
+
+    out, checked = {}, {}
+    dense, peak = built()
+    if dense.capture_counts != captured["mixed"]:
+        raise SystemExit(f"chip_smoke: a second build captured {dense.capture_counts}, the first {captured['mixed']}")
+    single = [dense(*f) for f in frames]
+    out["dense"] = dict(wire_bytes=dense.wire_bytes_per_frame, peak_bytes=peak, capture_counts=dense.capture_counts)
+
+    coo, peak = built(depth_wire="coo")
+    coo_equal = all(torch.equal(a, b) for f, s in zip(frames, single) for a, b in zip(coo(*f), s))
+    out["coo"] = dict(wire_bytes=coo.wire_bytes_per_frame, peak_bytes=peak, capture_counts=coo.capture_counts,
+                      bitwise_dense=coo_equal, dropped=coo.coo_dropped_points)
+    log(f"[{'ok' if coo_equal and not coo.coo_dropped_points else 'FAIL'}] COO wire ({coo.coo_capacity} points, "
+        f"{coo.wire_bytes_per_frame} B a frame against {dense.wire_bytes_per_frame}) bitwise the dense wire on "
+        f"{N_REQUESTS} frames; capture {coo.capture_counts}, peak {peak / 2**20:.0f} MiB")
+    if not coo_equal or coo.coo_dropped_points:
+        raise SystemExit("chip_smoke: the COO wire differs from the dense uint16 wire")
+    del coo
+
+    natural = natural_frame(frames[0][1])
+    nat_ref = torch.cat(dense(*natural))
+    for wire in ("yuv422", "yuv420"):
+        eng, peak = built(rgb_wire=wire)
+        if wire == "yuv422":  # its calls: the frame's with the RGB in bf16 (encoder 0 on conv_tc at cin 3)
+            r = Recorder()
+            with r.recording():
+                eng.forward_staged(eng.stage(*frames[0]))
+            checked.update(check_new(r.calls, "yuv422"))
+        nat = rel_rmse(torch.cat(eng(*natural)), nat_ref)
+        syn = max(rel_rmse(torch.cat(eng(*f)), torch.cat(s)) for f, s in zip(frames, single))
+        ok = (eng.capture_counts == PER_FRAME_FLOAT_RGB["mixed"] and nat <= YUV_BARS[wire]
+              and syn <= YUV_BARS["yuv420"])
+        out[wire] = dict(wire_bytes=eng.wire_bytes_per_frame, peak_bytes=peak, capture_counts=eng.capture_counts,
+                         natural=nat, synthetic=syn)
+        log(f"[{'ok' if ok else 'FAIL'}] {wire} wire ({eng.wire_bytes_per_frame} B a frame) against the dense "
+            f"wire: natural frame {nat:.2e} (bar {YUV_BARS[wire]:.0e}), synthetic frames {syn:.2e} "
+            f"(bar {YUV_BARS['yuv420']:.0e}); capture {eng.capture_counts}, peak {peak / 2**20:.0f} MiB")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the {wire} wire misses its bars")
+        del eng
+
+    eng, peak = built(rgb_wire="yuv420", depth_wire="coo")
+    stats = {k: v.as_dict() for k, v in benchmark(
+        eng, n_frames=BENCH_FRAMES, warmup=10, frame_factory=lambda i: frames[i % len(frames)]).items()}
+    out["yuv420_coo"] = dict(wire_bytes=eng.wire_bytes_per_frame, peak_bytes=peak, benchmark=stats)
+    log(f"    yuv420 + COO ({eng.wire_bytes_per_frame} B a frame) ms per two-stream frame: "
+        + "; ".join(f"{k} p50 {v['p50_ms']:.3f} p90 {v['p90_ms']:.3f} ({v['clock']})" for k, v in stats.items()))
+    del eng
+
+    small, _ = built(depth_wire="coo", coo_capacity=COO_SMALL)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        o = small(*frames[0])
+    points = [int(np.count_nonzero(frames[0][i])) for i in (1, 3)]
+    want = sum(max(0, n - COO_SMALL) for n in points)
+    warned = any("COO depth wire capacity" in str(w.message) for w in caught)
+    ok = small.coo_dropped_points == want > 0 and warned and all(torch.isfinite(t).all() for t in o)
+    out["coo_overflow"] = dict(capacity=COO_SMALL, points=points, dropped=small.coo_dropped_points, warned=warned)
+    log(f"[{'ok' if ok else 'FAIL'}] COO overflow: capacity {COO_SMALL}, {points} points, dropped "
+        f"{small.coo_dropped_points} (expected {want}), warned {warned}")
+    if not ok:
+        raise SystemExit("chip_smoke: the COO overflow was not counted")
+    del small
+
+    got = list(dense.run(iter(frames), depth=2, stage_ahead=4))
+    in_order = len(got) == len(frames) and all(torch.equal(a, b) for o, s in zip(got, single) for a, b in zip(o, s))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in dense.run(iter(frames * RUN_PASSES), depth=2, stage_ahead=4))
+    torch.cuda.synchronize()
+    run_fps = n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for f in frames * RUN_PASSES:
+        dense(*f)
+    torch.cuda.synchronize()
+    call_fps = n / (time.perf_counter() - t0)
+    out["run"] = dict(in_order_bitwise=in_order, frames=n, run_fps=run_fps, call_fps=call_fps)
+    log(f"[{'ok' if in_order else 'FAIL'}] run(depth=2, stage_ahead=4) over {len(frames)} frames: in order, bitwise "
+        f"the single calls; {run_fps:.1f} two-stream frames/s over {n} frames (one call at a time: {call_fps:.1f})")
+    if not in_order:
+        raise SystemExit("chip_smoke: run() differs from single calls")
+    del dense, single, got
+
+    f = frames[0]
+    rgb_u8 = f[0]
+    encoders = {
+        "depth_wire": lambda: wires.encode_depth_wire(f[1]),
+        "depth_coo": lambda: wires.encode_depth_coo(f[1], (H * W // 8 + 511) // 512 * 512),
+        "yuv420": lambda: wires.encode_yuv420(rgb_u8),
+        "yuv422": lambda: wires.encode_yuv422(rgb_u8),
+    }
+    out["encode_host_ms"] = {k: host_ms(fn) for k, fn in encoders.items()}
+    log("    wire encode on the host, ms a stream (median of 20): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["encode_host_ms"].items()))
+
+    fresh_peak()
+    r = Recorder()
+    with r.recording():
+        fps = benchmark_throughput(state, height=H, width=W, batch=THROUGHPUT_B)
+    peak = torch.cuda.max_memory_allocated()
+    tp = check_new(r.calls, f"b{2 * THROUGHPUT_B}")
+    checked.update(tp)
+    out["throughput"] = dict(batch=THROUGHPUT_B, fps=fps, peak_bytes=peak, calls=len(r.calls), new_calls=len(tp))
+    log(f"[ok] benchmark_throughput batch {THROUGHPUT_B} (B {2 * THROUGHPUT_B} in the net), bf16, {H}x{W}: "
+        f"{fps:.1f} frames/s; {len(r.calls)} distinct kernel calls, all within their bars; "
+        f"peak {peak / 2**20:.0f} MiB")
+    return out, checked
+
+
+# ---------------------------------------------------------------------------
 # The residual conv's backward
 # ---------------------------------------------------------------------------
 
@@ -1076,7 +1419,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         from nconv_tpu_torch import kernels
-        from nconv_tpu_torch.runtime import StreamingEngine, benchmark
+        from nconv_tpu_torch.runtime import StreamingEngine
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
@@ -1103,7 +1446,7 @@ def main() -> int:
     for name, eng in engines.items():
         r = Recorder()
         with r.recording():
-            eng(*frames[0])
+            eng.forward_staged(eng.stage(*frames[0]))
         torch.cuda.synchronize()
         rec[name] = r.calls
     g = torch.Generator(device="cuda").manual_seed(1234)
@@ -1137,61 +1480,21 @@ def main() -> int:
         log(f"per {sched} frame {kname}: " + ", ".join(f"{f} {v:.4f}" for f, v in tot.items())
             + f"; share of bound {tot['bound_ms'] / tot['ms']:.1%}")
 
-    # -- 3. the main path: two-stream requests through StreamingEngine
+    # -- 3. the main path: two-stream requests through StreamingEngine, each
+    # a replay of the frame's CUDA graph; 3b. the wires, run(), throughput
     with torch.no_grad():
         with plain_versions():
-            ref = {n: [readings(e, f, e(*f)) for f in frames[:2]] for n, e in engines.items()}
+            ref = {n: [readings(e, f, e.forward_staged(e.stage(*f))) for f in frames[:2]]
+                   for n, e in engines.items()}
             ref64 = {}
             for n, e in engines.items():
                 twin = f64_twin(e.model)
                 ref64[n] = [readings_f64(e, f, twin) for f in frames[:2]]
                 del twin
-        summary, engine_counts = {}, {}
-        for name in ("f32", "mixed"):
-            eng = engines[name]
-            eng.warmup()
-            kernels.reset_launch_counts()
-            outs = [eng(*f) for f in frames]
-            torch.cuda.synchronize()
-            counts = kernels.launch_counts()
-            engine_counts[name] = counts
-            for k in counts:
-                per = PER_FRAME[name].get(k, 0)
-                if counts[k] != per * N_REQUESTS:
-                    raise SystemExit(f"chip_smoke: {name}: {k} launched {counts[k]} times, "
-                                     f"expected {per} x {N_REQUESTS}")
-            for o0, o1 in outs:
-                for o in (o0, o1):
-                    if o.shape != (1, H, W, 1) or not torch.isfinite(o).all():
-                        raise SystemExit(f"chip_smoke: {name}: bad output {tuple(o.shape)}")
-                    if o[:, :45].abs().max() != 0 or o[:, H - 45:].abs().max() != 0 or o[:, :, :20].abs().max() != 0:
-                        raise SystemExit(f"chip_smoke: {name}: sensor border is not zero")
-            got = [readings(eng, frames[i], outs[i]) for i in range(2)]
-            err = lambda r, j: max(rel_rmse(got[i][j], r[i][j]) for i in range(2))
-            # kernel path vs plain path: the output, and its guided residual
-            # (bf16 output rounding in the mixed schedule); mixed vs f32 plain
-            checks = {"kernel_vs_plain": (err(ref[name], 0), ENGINE_BAR),
-                      "residual_kernel_vs_plain": (err(ref[name], 1), ENGINE_BAR if name == "f32" else BF16_BAR)}
-            if name == "mixed":
-                checks["vs_f32_plain"] = (err(ref["f32"], 0), MIXED_BAR)
-            stats = benchmark(eng, n_frames=N_REQUESTS * 2, warmup=2, frame_factory=lambda i: frames[i % len(frames)])
-            summary[name] = dict(**{k: v for k, (v, _) in checks.items()}, p50_ms=stats.p50_ms,
-                                 p90_ms=stats.p90_ms, counts=counts)
-            # beside the bars: each path's distance from the f64 plain run
-            dist = lambda rd, j: max(rel_rmse(rd[i][j], ref64[name][i][j]) for i in range(2))
-            f64 = {path: {"output": dist(rd, 0), "residual": dist(rd, 1)}
-                   for path, rd in (("kernel", got), ("plain", ref[name]))}
-            summary[name]["vs_f64"] = f64
-            missed = {k: v for k, v in checks.items() if v[0] > v[1]}
-            log(f"[{'FAIL' if missed else 'ok'}] engine {name}: {N_REQUESTS} requests, "
-                + ", ".join(f"{k} {v:.2e} (bar {b:.0e})" for k, (v, b) in checks.items())
-                + f"; p50 {stats.p50_ms:.3f} ms p90 {stats.p90_ms:.3f} ms per two-stream frame "
-                f"({stats.clock}); launches {counts}")
-            log(f"    engine {name} distance from the f64 plain run: "
-                + "; ".join(f"{path} path output {d['output']:.2e} residual {d['residual']:.2e}"
-                            for path, d in f64.items()))
-            if missed:
-                raise SystemExit(f"chip_smoke: engine {name} misses its bars: {missed}")
+        del engines
+        summary, engine_counts, captured = serve_phase(state, frames, ref, ref64)
+        del ref, ref64
+        summary["wires"], wire_results = wire_phase(state, frames, g, results, captured)
 
     # -- 4. step-1 training
     train_results, train_calls, train_counts, train_summary = train_phase(g)
@@ -1214,7 +1517,8 @@ def main() -> int:
         {"card": smi, "engines": summary, "training": train_summary, "guided_training": guided_summary,
          "guided_training_bf16": bf16_summary,
          "calls": [{"key": repr(k), **v}
-                   for k, v in {**results, **train_results, **guided_results, **bf16_results}.items()]},
+                   for k, v in {**results, **wire_results, **train_results, **guided_results,
+                                **bf16_results}.items()]},
         indent=1))
     entries = []
     for kname, (src, replaces) in KERNELS.items():

@@ -2,9 +2,9 @@
 from .backend import on_card, resolve_device
 from .fold import fold_batchnorm_state, maybe_fold
 from .guided import GuidedDepthNet, border_mask
-from .unguided import CONF_THRESHOLD, NConvUNet
+from .unguided import CONF_THRESHOLD, NConvUNet, Step1Unguided
 
 __all__ = [
     "CONF_THRESHOLD", "GuidedDepthNet", "NConvUNet", "border_mask",
-    "fold_batchnorm_state", "maybe_fold", "on_card", "resolve_device",
+    "Step1Unguided", "fold_batchnorm_state", "maybe_fold", "on_card", "resolve_device",
 ]

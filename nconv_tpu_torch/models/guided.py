@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import downscale_bilinear
+from ..ops.tables import TABLES
 from .backend import resolve_device
 from .layers import (
     Basic2d,
@@ -42,12 +43,19 @@ BORDER_LEFT = 20
 
 
 def border_mask(h: int, w: int, *, device=None, dtype=torch.float32) -> torch.Tensor:
-    """(1, 1, h, w) 0/1 mask zeroing the sensor border of the final depth."""
-    m = np.ones((1, 1, h, w), np.float32)
-    m[:, :, :BORDER_TOP] = 0.0
-    m[:, :, h - BORDER_BOTTOM :] = 0.0
-    m[:, :, :, :BORDER_LEFT] = 0.0
-    return torch.as_tensor(m, device=device, dtype=dtype)
+    """(1, 1, h, w) 0/1 mask zeroing the sensor border of the final depth,
+    built once per (h, w, device, dtype) (:data:`..ops.tables.TABLES`); do
+    not write to it."""
+    device = torch.device("cpu" if device is None else device)
+
+    def build():
+        m = np.ones((1, 1, h, w), np.float32)
+        m[:, :, :BORDER_TOP] = 0.0
+        m[:, :, h - BORDER_BOTTOM :] = 0.0
+        m[:, :, :, :BORDER_LEFT] = 0.0
+        return torch.as_tensor(m, device=device, dtype=dtype)
+
+    return TABLES.get(("border_mask", h, w, device, dtype), build)
 
 
 class UpCat(nn.Module):

@@ -92,3 +92,19 @@ class NConvUNet(nn.Module):
         xo, co = self.nconv6(cat_up(x23, x1, False), cat_up(c23, c1, False))  # (H-2, W-2)
         xo, co = self.nconv7(xo, co)  # (H+2, W+2)
         return xo[:, :, 1:h + 1, 1:w + 1], co[:, :, 1:h + 1, 1:w + 1]
+
+
+class Step1Unguided(nn.Module):
+    """Step 1 over any number of sparse-depth streams: the streams are
+    concatenated on the batch axis through one shared :class:`NConvUNet`
+    (``d_net``), whose dense depth comes back batch-stacked (stream i in
+    rows ``[i * B, (i + 1) * B)``)."""
+
+    def __init__(self, num_channels: int = 8, pos_fn: str = "softplus", *,
+                 device=None, seed: int = 0):
+        super().__init__()
+        self.d_net = NConvUNet(num_channels, pos_fn, device=device, seed=seed)
+
+    def forward(self, *depths: torch.Tensor) -> torch.Tensor:
+        out, _ = self.d_net(depths[0] if len(depths) == 1 else torch.cat(depths, 0))
+        return out

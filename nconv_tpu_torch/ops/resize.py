@@ -1,9 +1,13 @@
 """Resizing with torch's conventions, NCHW, from explicit index and weight
-tables (computed in float32, as torch's own kernels compute them)."""
+tables (computed in float32, as torch's own kernels compute them), each
+built once per (sizes, device, dtype) and kept on the device
+(:data:`.tables.TABLES`)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .tables import TABLES
 
 
 def _nearest_indices(out_size: int, in_size: int) -> np.ndarray:
@@ -18,9 +22,13 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     h_in, w_in = x.shape[-2:]
     if (h_out, w_out) == (h_in, w_in):
         return x
-    hi = torch.as_tensor(_nearest_indices(h_out, h_in), device=x.device)
-    wi = torch.as_tensor(_nearest_indices(w_out, w_in), device=x.device)
-    return x.index_select(-2, hi).index_select(-1, wi)
+    return x.index_select(-2, _nearest_table(h_out, h_in, x.device)).index_select(
+        -1, _nearest_table(w_out, w_in, x.device))
+
+
+def _nearest_table(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
+    return TABLES.get(("nearest", out_size, in_size, device),
+                      lambda: torch.as_tensor(_nearest_indices(out_size, in_size), device=device))
 
 
 def _linear_weights_align_true(out_size: int, in_size: int):
@@ -47,14 +55,24 @@ def _linear_weights_align_false(out_size: int, in_size: int):
     return lo, hi, frac
 
 
-def _lerp_axis(x: torch.Tensor, axis: int, lo, hi, frac) -> torch.Tensor:
-    dev = x.device
-    a = x.index_select(axis, torch.as_tensor(lo, device=dev))
-    b = x.index_select(axis, torch.as_tensor(hi, device=dev))
+def _linear_table(out_size: int, in_size: int, align_corners: bool, device: torch.device,
+                  dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lo, hi, frac) on ``device``, frac in ``dtype``."""
+    def build():
+        weights = _linear_weights_align_true if align_corners else _linear_weights_align_false
+        lo, hi, frac = weights(out_size, in_size)
+        return (torch.as_tensor(lo, device=device), torch.as_tensor(hi, device=device),
+                torch.as_tensor(frac, device=device).to(dtype))
+
+    return TABLES.get(("linear", out_size, in_size, align_corners, device, dtype), build)
+
+
+def _lerp_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool) -> torch.Tensor:
+    lo, hi, frac = _linear_table(out_size, x.shape[axis], align_corners, x.device, x.dtype)
     shape = [1] * x.ndim
     shape[axis] = -1
-    f = torch.as_tensor(frac, device=dev).to(x.dtype).view(shape)
-    return a * (1 - f) + b * f
+    f = frac.view(shape)
+    return x.index_select(axis, lo) * (1 - f) + x.index_select(axis, hi) * f
 
 
 def resize_bilinear(
@@ -65,11 +83,10 @@ def resize_bilinear(
     h_in, w_in = x.shape[-2:]
     if (h_out, w_out) == (h_in, w_in):
         return x
-    weights = _linear_weights_align_true if align_corners else _linear_weights_align_false
     if h_out != h_in:
-        x = _lerp_axis(x, x.ndim - 2, *weights(h_out, h_in))
+        x = _lerp_axis(x, x.ndim - 2, h_out, align_corners)
     if w_out != w_in:
-        x = _lerp_axis(x, x.ndim - 1, *weights(w_out, w_in))
+        x = _lerp_axis(x, x.ndim - 1, w_out, align_corners)
     return x
 
 

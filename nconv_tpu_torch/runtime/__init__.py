@@ -1,4 +1,8 @@
 """Serving runtime of the port."""
-from .streaming import FrameStats, StreamingEngine, benchmark, encode_depth_wire
+from .streaming import FrameStats, StreamingEngine, benchmark, benchmark_throughput
+from .wires import encode_depth_coo, encode_depth_wire, encode_yuv420, encode_yuv422
 
-__all__ = ["FrameStats", "StreamingEngine", "benchmark", "encode_depth_wire"]
+__all__ = [
+    "FrameStats", "StreamingEngine", "benchmark", "benchmark_throughput", "encode_depth_coo",
+    "encode_depth_wire", "encode_yuv420", "encode_yuv422",
+]

@@ -22,8 +22,9 @@ def rel(got, want):
     return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
 
 
-@pytest.fixture(scope="module")
-def variables():
+def jax_variables():
+    """Random JAX ``GuidedDepthNet`` variables (positive nconv kernels, BN
+    statistics near 1) from a seed."""
     rng = np.random.default_rng(3)
     z3, z1 = jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 16, 16, 1))
     shapes = jax.eval_shape(lambda: JGuided().init(jax.random.key(0), z3, z1, z3, z1))
@@ -38,6 +39,11 @@ def variables():
         return ((rng.random(s.shape) * 2 - 1) * bound).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+@pytest.fixture(scope="module")
+def variables():
+    return jax_variables()
 
 
 def frames(seed):
@@ -80,6 +86,9 @@ def test_benchmark_on_cpu_uses_the_host_clock(variables):
     eng = StreamingEngine(from_jax_variables(variables), height=H, width=W, device="cpu",
                           compute_dtype=torch.bfloat16)
     eng.warmup()
-    stats = benchmark(eng, n_frames=2, warmup=1)
-    assert stats.clock == "host" and stats.n_frames == 2 and stats.p50_ms > 0
+    stats = benchmark(eng, n_frames=4, warmup=1, window=2)
+    assert set(stats) == {"device", "synced", "e2e"}
+    for s in stats.values():
+        assert s.clock == "host" and s.p50_ms > 0
+    assert stats["synced"].n_frames == stats["e2e"].n_frames == 4
     assert eng.wire_bytes_per_frame == 2 * H * W * 5
