@@ -90,6 +90,27 @@ Phases (any failure raises and the script exits non-zero):
      autograd Function at the RGB encoders' shapes, f32 and bf16, kernel
      path against plain path.
 
+  7. the command line, ``nconv_tpu_torch.cli.main`` on the card, everything
+     under ``build/chip_smoke/cli``: (a) a NYU-layout tree at 480x640 (8
+     train, 2 val frames, ``.npy`` depth, RGB PNGs whose rows cycle through
+     the five PNG filters, a pool of 4 masks), one image decoded bitwise,
+     the decode time of a 352x1216 RGB PNG; (b) ``train-step1`` over a
+     2 x 2 lr x wd grid, 2 epochs at B = 4, one cell after another and
+     ``--grid-parallel`` (lockstep): walls, launches (K1, K x K, K5), the
+     first cell (the only one whose data stream is the same in both runs)
+     within rtol 1e-5; then both grids on the tree's batches decoded
+     once, where every cell
+     sees the same data: the same winner, every cell's losses within rtol
+     1e-5 and lr within 1e-6, the winner's state within rtol 1e-4 / atol
+     1e-6, and the walls of serial, lockstep, lockstep, serial; (c) ``train-step2`` from (b)'s best step 1,
+     f32 and ``--precision bf16``: finite losses, a launch of every form of
+     the guided step; (d) ``eval`` of both models against ``evaluate()``
+     called directly (rtol 1e-5); (e) ``infer`` at 352x1216 on 3 PNG pairs,
+     f32 and ``--mixed``: every depth PNG bitwise the engine's own output
+     after the uint16 rounding, every visualisation an RGB uint8 PNG; (f)
+     ``bench``, ``bench --throughput --batch 8``, ``bench --train [--precision
+     bf16]`` beside phases 3-6's numbers, and ``profile --mixed``.
+
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``; every checked call's numbers go
 to ``build/chip_smoke/chip_smoke_calls.json``. Exits non-zero without a GPU.
@@ -1408,6 +1429,353 @@ def residual_check(g):
     return found
 
 
+# ---------------------------------------------------------------------------
+# The command line: python -m nconv_tpu_torch, over the port's own data
+# ---------------------------------------------------------------------------
+
+NYU_H, NYU_W = 480, 640  # the NYU tree of phase 7
+NYU_TRAIN, NYU_VAL, NYU_MASKS = 8, 2, 4
+GRID_LRS, GRID_WDS = ("1e-2", "1e-3"), ("1e-7", "1e-2")
+GRID_EPOCHS, GRID_B = 2, 4
+INFER_FRAMES = 3  # an odd count: the last frame fills both streams
+CELL_RTOL, LR_RTOL = 1e-5, 1e-6  # per-cell losses / lr, lockstep vs serial (tests/test_training.py:423)
+STATE_RTOL, STATE_ATOL = 1e-4, 1e-6  # the winner's state
+EVAL_RTOL = 1e-5  # eval's JSON against evaluate() called directly
+STEP1_FORMS = ("nconv", "conv_kxk", "filtergrad")  # K1, K2's K x K form, K5
+REPLAY_ORDER = ("serial", "lockstep", "lockstep", "serial")
+
+
+def write_png_cycling_filters(path, rgb):
+    """An 8-bit RGB PNG whose rows take the five filters in turn (None,
+    Sub, Up, Average, Paeth), written from the PNG specification's filter
+    definitions (independent of the port's encoder, which writes filter 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    x = rgb.astype(np.int32).reshape(h, w * 3)
+    left = np.zeros_like(x)
+    left[:, 3:] = x[:, :-3]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    upleft = np.zeros_like(x)
+    upleft[1:, 3:] = x[:-1, :-3]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    kind = np.arange(h) % 5
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) // 2, paeth])[kind, np.arange(h)]
+    raw = np.concatenate([kind[:, None].astype(np.uint8), ((x - pred) & 255).astype(np.uint8)], axis=1)
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                           + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+
+
+def nyu_tree(root, seed=0):
+    """A NYU-layout tree (``<root>/<mode>/{gt,depth,img}``, ``<root>/mask``)
+    at 480x640: smooth depth, camera-like RGB, a pool of 4 masks (two of
+    them off-size, so the nearest resize runs). Returns the first image."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:NYU_H, 0:NYU_W].astype(np.float32)
+    first = None
+    for mode, n in (("train", NYU_TRAIN), ("val", NYU_VAL)):
+        for sub in ("gt", "depth", "img"):
+            (root / mode / sub).mkdir(parents=True)
+        for i in range(n):
+            ph = rng.random() * 6.28
+            gt = (1 + 4 * (yy / NYU_H) + np.sin(xx / 61.0 + ph) * np.cos(yy / 47.0)).astype(np.float32)
+            np.save(root / mode / "gt" / f"{i:04d}.npy", gt)
+            np.save(root / mode / "depth" / f"{i:04d}.npy", gt * (rng.random(gt.shape) < 0.05))
+            base = np.stack([xx / NYU_W, yy / NYU_H, 0.5 + 0.5 * np.sin(xx / 40.0 + ph)], -1) * 200
+            img = np.clip(base + rng.normal(0, 20, base.shape), 0, 255).astype(np.uint8)
+            write_png_cycling_filters(root / mode / "img" / f"{i:04d}.png", img)
+            first = img if first is None else first
+    (root / "mask").mkdir()
+    for i, shape in enumerate([(NYU_H, NYU_W), (NYU_H, NYU_W), (NYU_H // 2, NYU_W // 2), (357, 479)]):
+        np.save(root / "mask" / f"m{i}.npy", (rng.random(shape) < 0.1 + 0.05 * i).astype(np.float32))
+    return first
+
+
+def run_cli(argv, label):
+    """``nconv_tpu_torch.cli.main(argv)`` on the card: (its standard output,
+    wall seconds, the kernels it launched). A non-zero exit fails the phase."""
+    import io as text_io
+
+    import torch
+
+    from nconv_tpu_torch import cli, kernels
+
+    buf = text_io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    out = buf.getvalue()
+    if rc != 0:
+        raise SystemExit(f"chip_smoke: {label} exited {rc}:\n{out[-2000:]}")
+    log(f"    {label}: {wall:.2f} s; launches {counts}; last line: {out.strip().splitlines()[-1][:300]}")
+    return out, wall, counts
+
+
+@contextmanager
+def captured(module, name, into):
+    """Record every return value of ``module.name`` in ``into``."""
+    real = getattr(module, name)
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        into.append(out)
+        return out
+
+    with mock.patch.object(module, name, spy):
+        yield
+
+
+def close(a, b, rtol, atol=0.0):
+    import numpy as np
+
+    return np.allclose(np.asarray(a, np.float64), np.asarray(b, np.float64), rtol=rtol, atol=atol)
+
+
+def grid_compare(serial, lockstep, label):
+    """Hold a lockstep grid's (FitResult, lr, wd) to a serial one's:
+    the same winner, every cell's losses and lr, the winner's state."""
+    (best_s, lr_s, wd_s, cells_s), (best_p, lr_p, wd_p) = serial, lockstep
+    cells_p = best_p.history["cells"]
+    bad = [c for c in cells_p if not (
+        close(cells_p[c]["train_loss"], cells_s[c]["train_loss"], CELL_RTOL)
+        and close(cells_p[c]["val_loss"], cells_s[c]["val_loss"], CELL_RTOL)
+        and close(cells_p[c]["lr"], cells_s[c]["lr"], LR_RTOL))]
+    state_ok = all(close(best_p.best_variables[k], v, STATE_RTOL, STATE_ATOL)
+                   for k, v in best_s.best_variables.items())
+    ok = (lr_p, wd_p) == (lr_s, wd_s) and set(cells_p) == set(cells_s) and not bad and state_ok
+    log(f"[{'ok' if ok else 'FAIL'}] {label}: winner lr {lr_p} wd {wd_p} (serial lr {lr_s} wd {wd_s}); "
+        f"cells off their bars {bad}; winner's state within rtol {STATE_RTOL} atol {STATE_ATOL}: {state_ok}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {label} differs from the serial grid")
+
+
+def cli_phase(reference):
+    """Phase 7: the port's command line on the card, everything under
+    build/chip_smoke/cli. ``reference`` holds phases 3-6's numbers to print
+    beside the benchmarks'."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch import training
+    from nconv_tpu_torch.data import Loader, NYUDataset, io, png
+    from nconv_tpu_torch.models import GuidedDepthNet, NConvUNet
+    from nconv_tpu_torch.runtime import StreamingEngine
+    from nconv_tpu_torch.training import (
+        GridSearchConfig, OptimizerConfig, TrainConfig, UnguidedTask, evaluate, grid_search,
+        load_best, make_guided_predict, make_unguided_predict, parallel_grid_search,
+    )
+
+    t_phase = time.perf_counter()
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke" / "cli"
+    shutil.rmtree(base, ignore_errors=True)  # a stale grid_results.json would skip cells
+    base.mkdir(parents=True)
+    out = {}
+
+    # (a) the data: a NYU tree written with every row filter, one image
+    # decoded against the array written, the decode time of a KITTI frame
+    root = base / "nyu"
+    first = nyu_tree(root)
+    decoded = png.read(root / "train" / "img" / "0000.png")
+    bitwise = decoded.color_type == 2 and np.array_equal(decoded.samples, first)
+    kitti_rgb = synthetic_frames(1, seed=3)[0][0]
+    write_png_cycling_filters(base / "kitti.png", kitti_rgb)
+    decode_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        d = png.read(base / "kitti.png")
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    bitwise &= np.array_equal(d.samples, kitti_rgb)
+    out["data"] = dict(decoded_bitwise=bitwise, decode_ms_352x1216=statistics.median(decode_ms),
+                       decode_ms_all=decode_ms)
+    log(f"[{'ok' if bitwise else 'FAIL'}] data: NYU tree {NYU_H}x{NYU_W}, {NYU_TRAIN} train / {NYU_VAL} val "
+        f"frames, {NYU_MASKS} masks; PNGs (rows through all five filters) decode bitwise the arrays written; "
+        f"decode of a {H}x{W} RGB PNG {statistics.median(decode_ms):.1f} ms (median of 3: "
+        + ", ".join(f"{v:.1f}" for v in decode_ms) + ")")
+    if not bitwise:
+        raise SystemExit("chip_smoke: the PNG decoder does not return the image written")
+
+    # (b) the step-1 grid, one cell after another, then in lockstep
+    ck = str(base / "ck")
+    nyu = ["--dataset", "nyu", "--root", str(root), "--num-workers", "0", "--checkpoint-dir", ck]
+    grid = ["train-step1", *nyu, "--lr", *GRID_LRS, "--weight-decay", *GRID_WDS,
+            "--epochs", str(GRID_EPOCHS), "--batch-size", str(GRID_B)]
+    runs = {}
+    for name, extra in (("serial", []), ("lockstep", ["--grid-parallel"])):
+        fits = []
+        with captured(training, "grid_search" if name == "serial" else "parallel_grid_search", fits):
+            _, wall, counts = run_cli(grid + ["--name", name, *extra], f"train-step1 grid, {name}")
+        missing = [k for k in STEP1_FORMS if not counts.get(k)]
+        if missing:
+            raise SystemExit(f"chip_smoke: train-step1 {name} launched no {missing}")
+        runs[name] = dict(wall_s=wall, counts=counts, winner=fits[0][1:])
+    with open(Path(ck) / "serial_grid" / "grid_results.json") as f:
+        serial_cells = {c: v["history"] for c, v in json.load(f).items()}
+    lock_cells = fits[0][0].history["cells"]
+    # the serial grid's first cell reads the loaders' first epochs, as every
+    # lockstep cell does; its later cells read later shuffles and masks
+    c0 = f"lr{float(GRID_LRS[0]):g}_wd{float(GRID_WDS[0]):g}"
+    cell0_ok = (close(lock_cells[c0]["train_loss"], serial_cells[c0]["train_loss"], CELL_RTOL)
+                and close(lock_cells[c0]["val_loss"], serial_cells[c0]["val_loss"], CELL_RTOL)
+                and close(lock_cells[c0]["lr"], serial_cells[c0]["lr"], LR_RTOL))
+    finite = all(np.isfinite(h[k]).all() for cells in (serial_cells, lock_cells) for h in cells.values()
+                 for k in ("train_loss", "val_loss"))
+    out["grid_cli"] = dict(runs=runs, serial_cells=serial_cells, lockstep_cells=lock_cells)
+    log(f"[{'ok' if cell0_ok and finite else 'FAIL'}] train-step1 grid through the CLI ({len(GRID_LRS)} x "
+        f"{len(GRID_WDS)} cells, {GRID_EPOCHS} epochs, B {GRID_B}): serial {runs['serial']['wall_s']:.2f} s, "
+        f"lockstep {runs['lockstep']['wall_s']:.2f} s; cell {c0} (the same data in both) within rtol "
+        f"{CELL_RTOL}: {cell0_ok}; winners serial {runs['serial']['winner']} lockstep {runs['lockstep']['winner']}")
+    if not (cell0_ok and finite):
+        raise SystemExit("chip_smoke: the CLI's lockstep grid differs from its serial grid")
+
+    # the same grid on the same batches for every cell (the tree decoded once),
+    # serial and lockstep in turns
+    batches = {m: list(Loader(NYUDataset(str(root), m), GRID_B if m == "train" else 1)) for m in ("train", "val")}
+    cfg = TrainConfig(epochs=GRID_EPOCHS, batch_size=GRID_B, log_every=0,
+                      optimizer=OptimizerConfig("adamw", 1e-2, 1e-7))
+    gcfg = GridSearchConfig([float(v) for v in GRID_LRS], [float(v) for v in GRID_WDS])
+    factory = lambda: UnguidedTask(NConvUNet(device="cuda"))
+    loaders = (lambda: iter(batches["train"]), lambda: iter(batches["val"]))
+    quiet = lambda m: None
+    walls, serial = {}, None
+    for i, variant in enumerate(REPLAY_ORDER):  # in turns: the first runs of a shape pay its set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if variant == "serial":
+            res = grid_search(factory, cfg, gcfg, *loaders, log_fn=quiet, checkpoint_dir=str(base / f"replay_{i}"))
+        else:
+            res = parallel_grid_search(factory, cfg, gcfg, *loaders, log_fn=quiet)
+        torch.cuda.synchronize()
+        walls.setdefault(variant, []).append(time.perf_counter() - t0)
+        if variant == "serial" and serial is None:
+            with open(base / f"replay_{i}" / "grid_results.json") as f:
+                serial = (*res, {c: v["history"] for c, v in json.load(f).items()})
+        elif variant != "serial":
+            grid_compare(serial, res, f"{variant} grid on the same batches (run {i})")
+    out["grid_replay"] = dict(walls_s=walls)
+    log("    grid walls on the same batches, s, in the order run " + " ".join(REPLAY_ORDER) + ": "
+        + "; ".join(f"{k} " + " / ".join(f"{t:.3f}" for t in v) for k, v in walls.items()))
+
+    # (c) guided training from (b)'s best step 1, f32 and mixed
+    step1_ck = str(Path(ck) / "serial")
+    out["train_step2"] = {}
+    for prec in ("f32", "bf16"):
+        fits = []
+        with captured(training.Trainer, "fit", fits):
+            _, wall, counts = run_cli(["train-step2", *nyu, "--step1-checkpoint", step1_ck, "--epochs", "1",
+                                       "--batch-size", "1", "--name", f"guided_{prec}", "--precision", prec],
+                                      f"train-step2 --precision {prec}")
+        h = fits[0].history
+        missing = [k for k in PER_GUIDED_STEP[prec] if not counts.get(k)]
+        ok = np.isfinite(h["train_loss"] + h["val_loss"]).all() and not missing
+        out["train_step2"][prec] = dict(wall_s=wall, counts=counts, history=h)
+        log(f"[{'ok' if ok else 'FAIL'}] train-step2 {prec}: losses {h['train_loss']} / val {h['val_loss']}; "
+            f"forms without a launch {missing}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: train-step2 {prec}: {h} {missing}")
+
+    # (d) eval on (b)'s and (c)'s checkpoints against evaluate() called directly
+    out["eval"] = {}
+    for model_name, ckpt in (("unguided", step1_ck), ("guided", str(Path(ck) / "guided_f32"))):
+        text, wall, counts = run_cli(["eval", *nyu, "--model", model_name, "--checkpoint", ckpt,
+                                      "--split", "val", "--batch-size", "1"], f"eval --model {model_name}")
+        got = json.loads(text.strip().splitlines()[-1])
+        model = (GuidedDepthNet if model_name == "guided" else NConvUNet)(device="cuda")
+        model.load_state_dict(load_best(ckpt))
+        predict = (make_guided_predict if model_name == "guided" else make_unguided_predict)(model)
+        want = evaluate(predict, Loader(NYUDataset(str(root), "val"), 1))
+        ok = got.keys() == want.keys() and all(close(got[k], round(want[k], 6), EVAL_RTOL, 1e-6) for k in want)
+        out["eval"][model_name] = dict(cli=got, direct=want, wall_s=wall, counts=counts)
+        log(f"[{'ok' if ok else 'FAIL'}] eval --model {model_name}: {got}; evaluate() directly: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in want.items()))
+        if not ok:
+            raise SystemExit(f"chip_smoke: eval --model {model_name} differs from evaluate()")
+
+    # (e) infer at KITTI 352x1216: each depth PNG bitwise the engine's own
+    # output after the uint16 rounding
+    frames_dir = base / "frames"
+    frames_dir.mkdir()
+    for i, f in enumerate(synthetic_frames(INFER_FRAMES, seed=5)):
+        write_png_cycling_filters(frames_dir / f"{i}_rgb.png", f[0])
+        io.save_depth_png16(str(frames_dir / f"{i}_depth.png"), f[1])
+    guided_ck = str(Path(ck) / "guided_f32")
+    state = load_best(guided_ck)
+    loaded = [(io.load_rgb(str(frames_dir / f"{i}_rgb.png")), io.load_depth_png16(str(frames_dir / f"{i}_depth.png")))
+              for i in range(INFER_FRAMES)]
+    out["infer"] = {}
+    for mixed in (False, True):
+        label = "mixed" if mixed else "f32"
+        outdir = base / f"infer_{label}"
+        _, wall, counts = run_cli(["infer", "--checkpoint", guided_ck, "--rgb-glob", str(frames_dir / "*_rgb.png"),
+                                   "--depth-glob", str(frames_dir / "*_depth.png"), "--out-dir", str(outdir),
+                                   "--height", str(H), "--width", str(W), *(["--mixed"] if mixed else [])],
+                                  f"infer {label}")
+        eng = StreamingEngine(state, height=H, width=W,
+                              model=GuidedDepthNet(dtype=torch.bfloat16 if mixed else torch.float32, device="cuda"))
+        pairs = [(0, 1), (2, 2)]
+        want = {}
+        for a, b in pairs:
+            o0, o1 = eng(*loaded[a], *loaded[b])
+            for i, o in ((a, o0), (b, o1)):
+                want.setdefault(i, np.clip(o[0, :, :, 0].float().cpu().numpy().astype(np.float64) * 256.0,
+                                           0, 65535).astype(np.uint16))
+        del eng
+        bad = [i for i in range(INFER_FRAMES)
+               if not np.array_equal(png.read(outdir / f"{i}_rgb_depth.png").samples, want[i])]
+        vis = [png.read(outdir / f"{i}_rgb_vis.png").samples for i in range(INFER_FRAMES)]
+        vis_ok = all(v.shape == (H, W, 3) and v.dtype == np.uint8 for v in vis)
+        ok = not bad and vis_ok
+        out["infer"][label] = dict(wall_s=wall, counts=counts, bitwise=not bad, vis_ok=vis_ok)
+        log(f"[{'ok' if ok else 'FAIL'}] infer {label}, {INFER_FRAMES} frames at {H}x{W}: depth PNGs bitwise the "
+            f"engine's output after uint16 rounding (frames off {bad}); vis PNGs (H, W, 3) uint8: {vis_ok}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: infer {label}: depth PNGs {bad} differ, vis ok {vis_ok}")
+
+    # (f) the benchmark commands and one profile, beside phases 3-6's numbers
+    out["bench"] = {}
+    size = ["--height", str(H), "--width", str(W)]
+    for name, extra in (("latency", []), ("throughput", ["--throughput", "--batch", "8"]),
+                        ("train_f32", ["--train"]), ("train_bf16", ["--train", "--precision", "bf16"])):
+        text, wall, counts = run_cli(["bench", *size, *extra], " ".join(["bench", *extra]))
+        out["bench"][name] = dict(json=json.loads(text.strip().splitlines()[-1]), wall_s=wall, counts=counts)
+    text, wall, counts = run_cli(["profile", *size, "--mixed"], "profile --mixed")
+    prof = json.loads(text.strip().splitlines()[-1])
+    out["profile_mixed"] = dict(json=prof, wall_s=wall, counts=counts)
+    b = out["bench"]
+    log(f"    bench (f32 frame, ms): " + "; ".join(f"{k} p50 {v['p50_ms']:.3f}" for k, v in b["latency"]["json"].items())
+        + f" [phase 3: " + "; ".join(f"{k} p50 {v['p50_ms']:.3f}" for k, v in reference["f32_frame"].items()) + "]")
+    log(f"    bench --throughput --batch 8: {b['throughput']['json']['throughput_fps']} frames/s "
+        f"[phase 3b: {reference['throughput_fps']:.1f}]")
+    log(f"    bench --train: step 1 B 4 {b['train_f32']['json']['unguided_train_ms_per_batch']} ms, guided B 1 f32 "
+        f"{b['train_f32']['json']['guided_train_ms_per_batch']} ms, bf16 "
+        f"{b['train_bf16']['json']['guided_train_ms_per_batch']} ms "
+        f"[phases 4-6 p50: {reference['step1_ms']:.3f}, {reference['guided_f32_ms']:.3f}, "
+        f"{reference['guided_bf16_ms']:.3f}]")
+    log(f"    profile --mixed: wall {prof['wall_ms_per_request']:.3f} ms a request, device busy "
+        f"{prof['device_busy_ms_per_request']} ms, share {prof['device_busy_share']}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[ok] phase 7 (the command line): {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1506,6 +1874,13 @@ def main() -> int:
     bf16_results, bf16_calls, bf16_counts, bf16_summary, _ = guided_phase(g, torch.bfloat16, carry)
     bf16_summary["residual_backward"] = residual_check(g)
 
+    # -- 7. the command line over the port's own data
+    reference = dict(f32_frame=summary["f32"]["benchmark"], throughput_fps=summary["wires"]["throughput"]["fps"],
+                     step1_ms=train_summary["step_ms"]["kernel"]["p50_ms"],
+                     guided_f32_ms=guided_summary["step_ms"]["kernel"]["p50_ms"],
+                     guided_bf16_ms=bf16_summary["step_ms"]["kernel"]["p50_ms"])
+    cli_summary = cli_phase(reference)
+
     # -- report: one entry per kernel form; sums per two-stream frame over
     # the mixed main path for the serving kernels, per step-1 train step for
     # K2's K x K form and K5, per guided train step for the guided backward
@@ -1515,7 +1890,7 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke_calls.json").write_text(json.dumps(
         {"card": smi, "engines": summary, "training": train_summary, "guided_training": guided_summary,
-         "guided_training_bf16": bf16_summary,
+         "guided_training_bf16": bf16_summary, "cli": cli_summary,
          "calls": [{"key": repr(k), **v}
                    for k, v in {**results, **wire_results, **train_results, **guided_results,
                                 **bf16_results}.items()]},

@@ -47,7 +47,7 @@ import torch
 
 from .. import kernels
 from ..ops import convops, nconv
-from .profile import _request, _train_step
+from .profile import _train_step, request
 
 # The probe's own entries: the sources' launch code with a plan given.
 _WGRAD_PROBE = r"""
@@ -347,8 +347,8 @@ def _record_calls():
 
     for name, run in (("guided", lambda: _train_step("guided", torch.float32, 352, 1216)),
                       ("step1", lambda: _train_step("unguided", torch.float32, 352, 1216)),
-                      ("frame", lambda: _request(torch.float32, 352, 1216)),
-                      ("mixed", lambda: _request(torch.bfloat16, 352, 1216))):
+                      ("frame", lambda: request(torch.float32, 352, 1216)),
+                      ("mixed", lambda: request(torch.bfloat16, 352, 1216))):
         step_name.append(name)
         step = run()
         step()  # warm-up: builds the kernel library, settles the allocator

@@ -32,9 +32,13 @@ from ..training import GuidedTask, OptimizerConfig, TrainConfig, Trainer, Unguid
 from .streaming import StreamingEngine
 
 
-def _request(dtype, h, w):
-    state = GuidedDepthNet(device="cuda").state_dict()
-    eng = StreamingEngine(state, height=h, width=w, compute_dtype=dtype)
+def request(dtype, h, w, state=None, pos_fn="softplus"):
+    """A two-stream request of a ``StreamingEngine`` (random weights unless
+    ``state`` is given) on a synthetic u8 frame, as a callable."""
+    if state is None:
+        state = GuidedDepthNet(device="cuda").state_dict()
+    model = GuidedDepthNet(step1_pos_fn=pos_fn, dtype=dtype, device="cuda")
+    eng = StreamingEngine(state, height=h, width=w, model=model)
     rng = np.random.default_rng(0)
     rgb = (rng.random((h, w, 3)) * 255).astype(np.uint8)
     d = (rng.random((h, w)) * 80 * (rng.random((h, w)) < 0.05)).astype(np.float32)
@@ -93,6 +97,14 @@ def trace(run, frames: int) -> dict:
     }
 
 
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("bf16", "f32"),
@@ -106,13 +118,9 @@ def main(argv=None) -> dict:
     h, w = 352, 1216
     name = args.dtype or ("f32" if args.train else "bf16")
     dtype = torch.bfloat16 if name == "bf16" else torch.float32
-    run = _train_step(args.train, dtype, h, w) if args.train else _request(dtype, h, w)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    ).stdout.strip()
+    run = _train_step(args.train, dtype, h, w) if args.train else request(dtype, h, w)
     what = f"{args.train}_train_step" if args.train else "request"
-    out = {"card": card, "what": what, "dtype": name, "hw": [h, w], **trace(run, args.frames)}
+    out = {"card": card(), "what": what, "dtype": name, "hw": [h, w], **trace(run, args.frames)}
     print(json.dumps(out))
     return out
 

@@ -1,7 +1,8 @@
 """Training of the port: step 1 (``UnguidedTask``) and step 2 (``GuidedTask``)
-on one device."""
-from .checkpoint import CheckpointManager
-from .config import OptimizerConfig, SchedulerConfig, TrainConfig
+on one device, the learning-rate x weight-decay grid (one cell after another,
+or in lockstep), best-model files."""
+from .checkpoint import CheckpointManager, load_best, save_best
+from .config import GridSearchConfig, OptimizerConfig, SchedulerConfig, TrainConfig
 from .evaluate import evaluate, make_guided_predict, make_unguided_predict
 from .optim import (
     ConstantScheduler,
@@ -13,12 +14,13 @@ from .optim import (
     get_learning_rate,
     set_learning_rate,
 )
-from .trainer import FitResult, GuidedTask, Trainer, UnguidedTask
+from .trainer import FitResult, GuidedTask, Trainer, UnguidedTask, grid_search
+from .grid_parallel import parallel_grid_search
 
 __all__ = [
-    "CheckpointManager", "ConstantScheduler", "FitResult", "GuidedTask", "LinearScheduler",
-    "OptimizerConfig", "PlateauScheduler", "RMSprop", "SchedulerConfig",
-    "TrainConfig", "Trainer", "UnguidedTask", "build_optimizer",
-    "build_scheduler", "evaluate", "get_learning_rate", "make_guided_predict",
-    "make_unguided_predict", "set_learning_rate",
+    "CheckpointManager", "ConstantScheduler", "FitResult", "GridSearchConfig", "GuidedTask",
+    "LinearScheduler", "OptimizerConfig", "PlateauScheduler", "RMSprop", "SchedulerConfig",
+    "TrainConfig", "Trainer", "UnguidedTask", "build_optimizer", "build_scheduler", "evaluate",
+    "get_learning_rate", "grid_search", "load_best", "make_guided_predict", "make_unguided_predict",
+    "parallel_grid_search", "save_best", "set_learning_rate",
 ]

@@ -4,10 +4,12 @@ Every saved epoch is one file ``epoch_<n>.pt`` in the directory, holding
 ``{"state": ..., "meta": ...}``: ``state`` the tensors to restore (model
 and optimizer state dicts), ``meta`` plain values (history, best val loss,
 scheduler state). The newest ``keep`` epochs are retained. The best
-variables so far live beside them in ``best_variables.pt``. Each file is
-written to a temporary name and renamed, so a killed run leaves whole
-files only. Files load with ``weights_only=True``. The JAX package's orbax
-layout is not read or written.
+variables so far live beside them in ``best_variables.pt``.
+:func:`save_best` writes a run's best state dict to one file of the name
+given, which :func:`load_best` reads (the command line's checkpoints).
+Each file is written to a temporary name and renamed, so a killed run
+leaves whole files only. Files load with ``weights_only=True``. The JAX
+package's orbax layout is not read or written.
 """
 from __future__ import annotations
 
@@ -72,3 +74,17 @@ class CheckpointManager:
 
     def load_best_variables(self) -> dict | None:
         return _load(self._best_path) if self._best_path.exists() else None
+
+
+def save_best(directory: str | os.PathLike, name: str, state: dict) -> str:
+    """Write a best-model state dict to ``<directory>/<name>``; returns the
+    path."""
+    path = Path(directory).resolve() / name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _save(state, path)
+    return str(path)
+
+
+def load_best(path: str | os.PathLike) -> dict:
+    """The state dict :func:`save_best` wrote (CPU tensors)."""
+    return _load(Path(path))

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Sequence
 
 
 @dataclass(frozen=True)
@@ -49,3 +50,11 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class GridSearchConfig:
+    """The learning-rate x weight-decay sweep of step-1 training."""
+
+    learning_rates: Sequence[float] = (1e-2,)
+    weight_decays: Sequence[float] = (1e-7,)

@@ -8,14 +8,14 @@ is ``model.eval()`` under ``torch.no_grad()``, which takes the fused serving
 forward. On the card, step 1's forward runs K1 and its backward K2's K x K
 form and K5 (``ops/nconv.py``); step 2's forward runs K1 (frozen step 1),
 K2 and K3, and its backward K2's K x K forms, K3's 3x3/s2 form and K6
-(``ops/conv_autograd.py``).
+(``ops/conv_autograd.py``). :func:`grid_search` sweeps the learning rate
+and weight decay one cell after another.
 """
 from __future__ import annotations
 
+import json
 import os
-import struct
 import time
-import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Iterable
 
@@ -26,8 +26,9 @@ from ..data.pipeline import prefetch_to_device
 from ..losses import depth_loss, multi_resolution_loss
 from ..models import GuidedDepthNet, NConvUNet
 from ..models.backend import resolve_device
+from ..utils.colormap import save_depth
 from .checkpoint import CheckpointManager
-from .config import TrainConfig
+from .config import GridSearchConfig, OptimizerConfig, TrainConfig
 from .optim import build_optimizer, build_scheduler, set_learning_rate
 
 
@@ -236,28 +237,89 @@ class Trainer:
 
     def _dump_images(self, batch: dict, epoch: int, batch_idx: int) -> None:
         """Debug dumps of batch element 0: prediction, sparse input and GT,
-        each min-max normalised to an 8-bit grayscale PNG."""
+        each an inferno-coloured PNG (``utils.colormap.save_depth``)."""
         os.makedirs(self.cfg.image_dir, exist_ok=True)
         self.model.eval()
         pred = self.task.predict(batch)
         stem = os.path.join(self.cfg.image_dir, f"{self.cfg.run_name}_e{epoch}_b{batch_idx}")
         for suffix, t in (("_out", pred), ("_sparse", batch["depth"]), ("_gt", batch["gt"])):
-            save_depth_png(t[0].float().cpu().numpy(), stem + suffix + ".png")
+            save_depth(t[0].float().cpu().numpy(), stem + suffix + ".png")
 
 
-def save_depth_png(depth: np.ndarray, path: str) -> None:
-    """Write a depth map (singleton axes squeezed) as a min-max normalised
-    8-bit grayscale PNG, with the standard library's zlib only."""
-    d = np.asarray(depth, np.float32)
-    d = d.reshape([s for s in d.shape if s != 1] or [1, 1])
-    lo, hi = float(d.min()), float(d.max())
-    img = ((d - lo) / (hi - lo) * 255 if hi > lo else np.zeros_like(d)).astype(np.uint8)
-    raw = b"".join(b"\x00" + row.tobytes() for row in img)
+def cell_config(cfg: TrainConfig, lr: float, wd: float) -> TrainConfig:
+    """``cfg`` with the optimizer's learning rate and weight decay of one
+    grid cell."""
+    o = cfg.optimizer
+    return cfg.replace(optimizer=OptimizerConfig(o.name, lr, wd, o.momentum))
 
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
 
-    header = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], 8, 0, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw))
-                + chunk(b"IEND", b""))
+def cell_name(lr: float, wd: float) -> str:
+    return f"lr{lr:g}_wd{wd:g}"
+
+
+def grid_search(
+    task_factory: Callable[[], object],
+    cfg: TrainConfig,
+    grid: GridSearchConfig,
+    train_loader,
+    val_loader,
+    log_fn: Callable[[str], None] = print,
+    checkpoint_dir: str | None = None,
+    device: str | torch.device | None = "cuda",
+):
+    """Learning-rate x weight-decay sweep, one cell after another; returns
+    ``(best FitResult, best lr, best wd)``. ``task_factory()`` gives each
+    cell its task, model freshly initialised.
+
+    With ``checkpoint_dir`` the sweep resumes: each cell trains under its
+    own per-epoch :class:`CheckpointManager` (``<dir>/<cell>``), finished
+    cells are recorded in ``grid_results.json`` and skipped on a rerun, a
+    cell cut mid-training resumes from its latest epoch, and a winner from
+    an earlier run is reloaded from its cell's ``best_variables.pt``.
+
+    Each cell reads the loaders' next epochs, so with loaders that shuffle
+    or draw per pass (the datasets' sparsification) a later cell sees other
+    batches than the first, as in the JAX package; the lockstep
+    ``parallel_grid_search`` gives every cell the same batches.
+    """
+    results_path = os.path.join(checkpoint_dir, "grid_results.json") if checkpoint_dir else None
+    done: dict[str, dict] = {}
+    if results_path and os.path.isfile(results_path):
+        with open(results_path) as f:
+            done = json.load(f)
+
+    best: FitResult | None = None
+    best_lr = best_wd = best_cell = None
+    for lr in grid.learning_rates:
+        for wd in grid.weight_decays:
+            cell = cell_name(lr, wd)
+            if cell in done:
+                log_fn(f"[grid] {cell}: already complete (val "
+                       f"{done[cell]['best_val_loss']:.4f}), skipping")
+                result = FitResult(None, float(done[cell]["best_val_loss"]),
+                                   done[cell].get("history", {}))
+            else:
+                log_fn(f"[grid] lr={lr} wd={wd}")
+                ckpts = (CheckpointManager(os.path.join(checkpoint_dir, cell), keep=cfg.keep_checkpoints)
+                         if checkpoint_dir else None)
+                trainer = Trainer(task_factory(), cell_config(cfg, lr, wd), checkpoints=ckpts,
+                                  log_fn=log_fn, device=device)
+                result = trainer.fit(train_loader, val_loader, resume=checkpoint_dir is not None)
+                if results_path:
+                    done[cell] = {"lr": lr, "wd": wd, "best_val_loss": result.best_val_loss,
+                                  "history": result.history}
+                    with open(results_path, "w") as f:
+                        json.dump(done, f)
+            if best is None or result.best_val_loss < best.best_val_loss:
+                best, best_lr, best_wd, best_cell = result, lr, wd, cell
+    if best is not None and best.best_variables is None and checkpoint_dir:
+        # the winner finished in an earlier run: its best model is on disk
+        best.best_variables = CheckpointManager(
+            os.path.join(checkpoint_dir, best_cell)).load_best_variables()
+        if best.best_variables is None:
+            raise FileNotFoundError(
+                f"grid cell '{best_cell}' is marked complete in {results_path} but "
+                f"{checkpoint_dir}/{best_cell}/best_variables.pt is missing; delete the "
+                "cell's entry from grid_results.json to re-train it"
+            )
+    return best, best_lr, best_wd

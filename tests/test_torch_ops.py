@@ -223,3 +223,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+FORBIDDEN = ("jax", "flax", "nconv_tpu", "PIL", "matplotlib", "cv2")
+
+
+def test_port_sources_import_none_of_what_the_card_lacks():
+    """Every ``import`` in the port's sources and in chip_smoke.py, at any
+    depth (inside functions too): none of jax, flax, the JAX package, PIL,
+    matplotlib or cv2, which the card's machine does not have."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "nconv_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{f.relative_to(root)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad

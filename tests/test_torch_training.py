@@ -11,6 +11,8 @@ whole network's gradients (the bar at which the JAX package holds its own
 two backends together); 1e-6 for losses, Sobel and optimizer updates; 1e-4
 for two epochs of ``Trainer.fit``.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -52,7 +54,7 @@ from nconv_tpu_torch.training import (
     set_learning_rate,
 )
 from nconv_tpu_torch.training.config import SchedulerConfig
-from nconv_tpu_torch.training.trainer import save_depth_png
+from nconv_tpu_torch.utils import save_depth
 
 
 def rel(got, want):
@@ -454,17 +456,31 @@ def test_trainer_stops_early_after_patience_and_extra_bad_epochs():
     assert len(got.history["val_loss"]) == 3
 
 
-def test_trainer_dumps_depth_images(tmp_path):
+def test_trainer_dumps_depth_images(tmp_path, monkeypatch):
+    """The dumps are inferno PNGs, pixel-equal to the JAX package's
+    ``utils.save_depth`` (the JAX trainer's dump) of the same arrays."""
     from PIL import Image
 
+    from nconv_tpu.utils import save_depth as jsave_depth
+    from nconv_tpu_torch.training import trainer as trainer_module
+
+    dumped = []
+    real = trainer_module.save_depth
+    monkeypatch.setattr(trainer_module, "save_depth",
+                        lambda d, path: (dumped.append((d, path)), real(d, path)))
     train, val, kw, opt = _fit_case()
-    kw.update(epochs=1, dump_images_every=1, image_dir=str(tmp_path), run_name="r")
+    kw.update(epochs=1, dump_images_every=1, image_dir=str(tmp_path / "port"), run_name="r")
     Trainer(UnguidedTask(NConvUNet(device="cpu")), TrainConfig(**kw), log_fn=lambda m: None,
             device="cpu").fit(train, val)
-    names = sorted(p.name for p in tmp_path.iterdir())
+    names = sorted(p.name for p in (tmp_path / "port").iterdir())
     assert names == sorted(f"r_e0_b{i}_{s}.png" for i in (0, 1) for s in ("out", "sparse", "gt"))
-    img = np.asarray(Image.open(tmp_path / "r_e0_b0_gt.png"))
-    assert img.shape == (16, 32) and img.dtype == np.uint8 and img.max() == 255
+    assert sorted(os.path.basename(p) for _, p in dumped) == names
+    for d, path in dumped:
+        want = str(tmp_path / os.path.basename(path))
+        jsave_depth(d, want)
+        img = np.asarray(Image.open(path))
+        assert img.shape == (16, 32, 3) and img.dtype == np.uint8
+        np.testing.assert_array_equal(img, np.asarray(Image.open(want)))
 
 
 def test_trainer_default_device_is_cuda():
@@ -486,10 +502,14 @@ def test_synthetic_data_and_loader_match_jax():
     assert all(isinstance(t, torch.Tensor) for b in staged for t in b.values())
 
 
-def test_save_depth_png_is_a_readable_png(tmp_path):
+def test_save_depth_writes_a_readable_inferno_png(tmp_path):
     from PIL import Image
 
+    from nconv_tpu_torch.utils.colormap import INFERNO
+
     d = np.linspace(0, 1, 12, dtype=np.float32).reshape(1, 3, 4, 1)
-    save_depth_png(d, str(tmp_path / "d.png"))
+    save_depth(d, str(tmp_path / "d.png"))
     img = np.asarray(Image.open(tmp_path / "d.png"))
-    assert img.shape == (3, 4) and img[0, 0] == 0 and img[-1, -1] == 255
+    assert img.shape == (3, 4, 3)
+    np.testing.assert_array_equal(img[0, 0], INFERNO[0])
+    np.testing.assert_array_equal(img[-1, -1], INFERNO[255])
