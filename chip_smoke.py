@@ -110,6 +110,20 @@ Phases (any failure raises and the script exits non-zero):
      after the uint16 rounding, every visualisation an RGB uint8 PNG; (f)
      ``bench``, ``bench --throughput --batch 8``, ``bench --train [--precision
      bf16]`` beside phases 3-6's numbers, and ``profile --mixed``.
+  8. export and interop, everything under ``build/chip_smoke/export``: (a)
+     phase 3's folded model, f32 and mixed, exported at 352x1216 with a
+     dynamic batch on the card (``runtime/export.py``: K1-K4 as the custom
+     ops of ``ops/library.py``), saved, reloaded in a fresh process that
+     imports only the port; at b = 1 and 2 its outputs bitwise the eager
+     ``export``'s on the same f32 inputs and its launches the eager call's
+     (every serving family nonzero); p50s (CUDA events) of the program, the
+     eager call and phase 3's graph replay, the export, save and reload
+     times; (b) the deployment ONNX at 480x640 with its contract checked,
+     and a 128x160 artifact run by the port's numpy interpreter at b = 2
+     against the card's plain path (1e-4); (c) ``export --selftest``,
+     ``export --format onnx --selftest``, ``convert --reverse`` and
+     ``convert`` through ``run_cli``, the state converted back equal to the
+     one written.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``; every checked call's numbers go
@@ -1776,6 +1790,215 @@ def cli_phase(reference):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Export and interop: the torch.export program, the ONNX artifact, convert
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCHES = (1, 2)  # served by one program with a dynamic batch axis
+
+# run in a fresh process that imports only the port: load the program, run
+# it at each batch, count its launches, time it; argv: program, inputs file,
+# outputs file, repetitions
+RELOAD_SCRIPT = r"""
+import json, statistics, sys, time
+import torch
+from nconv_tpu_torch import kernels
+from nconv_tpu_torch.runtime.export import load_exported
+
+path, inputs_path, outputs_path, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+t0 = time.perf_counter()
+call = load_exported(path)
+load_s = time.perf_counter() - t0
+inputs = torch.load(inputs_path)
+outs, counts = {}, {}
+for b, args in inputs.items():
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs[b] = call(*args)
+    torch.cuda.synchronize()
+    counts[b] = {k: n for k, n in kernels.launch_counts().items() if n}
+torch.save(outs, outputs_path)
+times = []
+for i in range(reps + 1):
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    call(*inputs[1])
+    e.record()
+    e.synchronize()
+    times.append(s.elapsed_time(e))
+repo = sorted({m.split(".")[0] for m in sys.modules} & {"nconv_tpu", "nconv_tpu_torch", "chip_smoke", "jax", "flax"})
+print(json.dumps({"load_s": load_s, "counts": counts, "p50_ms": statistics.median(times[1:]), "packages": repo}))
+"""
+
+
+def export_inputs():
+    """f32 NHWC inputs of the contract, at each of ``EXPORT_BATCHES``, from
+    the first frames of :func:`synthetic_frames` (seed 5)."""
+    import numpy as np
+    import torch
+
+    frames = synthetic_frames(max(EXPORT_BATCHES), seed=5)
+
+    def stack(i, b):
+        x = np.stack([f[i] for f in frames[:b]]).astype(np.float32)
+        return torch.from_numpy(x if x.ndim == 4 else x[..., None]).cuda()
+
+    return {b: [stack(i, b) for i in range(4)] for b in EXPORT_BATCHES}
+
+
+def export_program_phase(state, replay_ms, smi):
+    """Phase 8 (a): the phase-3 folded model, f32 and mixed, exported with a
+    dynamic batch on the card, saved, and reloaded in a fresh process that
+    imports only the port; at b = 1 and 2 its outputs bitwise the eager
+    ``export``'s and its launches the eager call's; p50s beside the eager
+    call's and the phase-3 graph replay's (``replay_ms``)."""
+    import shutil
+
+    import torch
+
+    from nconv_tpu_torch import kernels
+    from nconv_tpu_torch.models import GuidedDepthNet, maybe_fold
+    from nconv_tpu_torch.runtime.export import export_guided, save_exported
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke" / "export"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    inputs = export_inputs()
+    torch.save(inputs, base / "inputs.pt")
+    out = {}
+    for name in ("f32", "mixed"):
+        per = PER_FRAME_FLOAT_RGB[name]
+        model, st = maybe_fold(GuidedDepthNet(dtype=getattr(torch, SCHEDULES[name]), device="cuda"), state)
+        model.load_state_dict(st)
+        t0 = time.perf_counter()
+        ep = export_guided(model, height=H, width=W)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = save_exported(ep, base / f"guided_{name}.pt2")
+        save_s = time.perf_counter() - t0
+        del ep
+        eager, eager_counts = {}, {}
+        for b, args in inputs.items():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            eager[b] = model.export(*args)
+            torch.cuda.synchronize()
+            eager_counts[b] = nonzero(kernels.launch_counts())
+        eager_ms = time_ms(lambda: model.export(*inputs[1]))
+        outputs = base / f"outputs_{name}.pt"
+        proc = subprocess.run([sys.executable, "-c", RELOAD_SCRIPT, path, str(base / "inputs.pt"), str(outputs),
+                               str(REPS)], capture_output=True, text=True, cwd=Path(__file__).resolve().parent)
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_smoke: export {name}: the reloading process failed:\n{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(outputs)
+        bitwise = {b: all(torch.equal(g, e) for g, e in zip(got[b], eager[b])) for b in EXPORT_BATCHES}
+        counts = {b: res["counts"][str(b)] for b in EXPORT_BATCHES}
+        shapes = all(tuple(o.shape) == (b, H, W, 1) and torch.isfinite(o).all() and o[:, 45:H - 45, 20:].abs().max() > 0
+                     for b in EXPORT_BATCHES for o in got[b])
+        ok = (all(bitwise.values()) and shapes and res["packages"] == ["nconv_tpu_torch"]
+              and all(counts[b] == eager_counts[b] == per for b in EXPORT_BATCHES))
+        out[name] = dict(export_s=export_s, save_s=save_s, bytes=Path(path).stat().st_size, load_s=res["load_s"],
+                         program_p50_ms=res["p50_ms"], eager_p50_ms=eager_ms, replay_p50_ms=replay_ms.get(name),
+                         bitwise=bitwise, counts=counts, eager_counts=eager_counts, packages=res["packages"])
+        log(f"[{'ok' if ok else 'FAIL'}] export {name}: one .pt2 program, b = {EXPORT_BATCHES} bitwise the eager "
+            f"export {bitwise}; its launches {counts[1]} (eager {eager_counts[1]}, expected {per}); the reloading "
+            f"process imported {res['packages']}")
+        log(f"    export {name} ({smi}): export {export_s:.2f} s, save {save_s:.2f} s "
+            f"({out[name]['bytes'] / 2**20:.2f} MiB), reload in a fresh process {res['load_s']:.2f} s; p50 of a "
+            f"two-stream b = 1 call (CUDA events): program {res['p50_ms']:.3f} ms, eager export {eager_ms:.3f} ms, "
+            f"phase-3 graph replay (device) {replay_ms.get(name, float('nan')):.3f} ms")
+        if not ok:
+            raise SystemExit(f"chip_smoke: export {name}: bitwise {bitwise}, shapes ok {shapes}, counts {counts} "
+                             f"against eager {eager_counts}, packages {res['packages']}")
+        del model, eager, got
+    return out
+
+
+ONNX_H, ONNX_W = 480, 640  # the reference's deployed ONNX geometry
+ONNX_EXEC_H, ONNX_EXEC_W = 128, 160  # executed by the port's numpy interpreter (nonzero inside the border)
+ONNX_BAR = 1e-4  # the f32 guided bar
+CONVERT_ATOL = 1e-6  # a softplus / inverse-softplus round trip of the step-1 kernels
+
+
+def onnx_phase(state, smi):
+    """Phase 8 (b): the deployment ONNX, traced on a CPU copy of the
+    weights: at 480x640 with the contract checked; at 128x160 executed by
+    the port's numpy interpreter at b = 2 against the card's plain path."""
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch.compat import export_guided_onnx, read_onnx_summary
+    from nconv_tpu_torch.compat.onnx_exec import run_onnx
+    from nconv_tpu_torch.compat.onnx_export import INPUT_NAMES, check_contract, selftest_frames
+    from nconv_tpu_torch.models import GuidedDepthNet
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke" / "export"
+    t0 = time.perf_counter()
+    path = export_guided_onnx(state, str(base / f"guided_{ONNX_H}x{ONNX_W}.onnx"), height=ONNX_H, width=ONNX_W)
+    export_s = time.perf_counter() - t0
+    summary = read_onnx_summary(path)
+    check_contract(summary)
+    small = export_guided_onnx(state, str(base / f"guided_{ONNX_EXEC_H}x{ONNX_EXEC_W}.onnx"),
+                               height=ONNX_EXEC_H, width=ONNX_EXEC_W)
+    rgb, dep = selftest_frames(ONNX_EXEC_H, ONNX_EXEC_W, batch=2)
+    feeds = dict(zip(INPUT_NAMES, (rgb, dep, rgb[::-1].copy(), dep[::-1].copy())))
+    t0 = time.perf_counter()
+    got = run_onnx(small, feeds)
+    exec_s = time.perf_counter() - t0
+    model = GuidedDepthNet(device="cuda")
+    model.load_state_dict(state)
+    with torch.no_grad(), plain_versions():
+        want = model.export(*(torch.from_numpy(feeds[n]).cuda().permute(0, 2, 3, 1) for n in INPUT_NAMES))
+    want = [w.permute(0, 3, 1, 2) for w in want]
+    errs = [rel_rmse(torch.from_numpy(np.ascontiguousarray(g)).cuda(), w) for g, w in zip(got, want)]
+    nonzero_out = all(float(w.abs().mean()) > 0.1 for w in want)
+    ok = max(errs) < ONNX_BAR and nonzero_out
+    log(f"[{'ok' if ok else 'FAIL'}] onnx: {ONNX_H}x{ONNX_W} artifact ({summary['total_weight_floats']} "
+        f"initializer values, {sum(summary['op_counts'].values())} nodes) has the contract, exported in "
+        f"{export_s:.2f} s; the {ONNX_EXEC_H}x{ONNX_EXEC_W} artifact run by the port's interpreter at b = 2 "
+        f"({exec_s:.2f} s on the host) against the card's plain path: rel RMSE {max(errs):.2e} (bar {ONNX_BAR:.0e}), "
+        f"outputs nonzero {nonzero_out} ({smi})")
+    if not ok:
+        raise SystemExit(f"chip_smoke: onnx: rel RMSE {errs}, nonzero {nonzero_out}")
+    return dict(export_s=export_s, exec_s=exec_s, rel_rmse=errs, op_counts=summary["op_counts"],
+                weight_floats=summary["total_weight_floats"])
+
+
+def interop_cli_phase(state):
+    """Phase 8 (c): ``export`` (pt2 on the card with its selftest, onnx with
+    its selftest) and ``convert --reverse`` then ``convert`` back through
+    ``run_cli``; the converted state equal to the one written."""
+    import numpy as np
+
+    from nconv_tpu_torch.training import load_best, save_best
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke" / "export" / "cli"
+    base.mkdir(parents=True)
+    ck = save_best(base, "guided", {k: v.cpu() for k, v in state.items()})
+    out = {}
+    for label, argv in (
+            ("export --selftest", ["export", "--checkpoint", ck, "--out", str(base / "guided.pt2"), "--height",
+                                   str(H), "--width", str(W), "--selftest"]),
+            ("export --format onnx --selftest", ["export", "--checkpoint", ck, "--out", str(base / "guided.onnx"),
+                                                 "--height", str(ONNX_EXEC_H), "--width", str(ONNX_EXEC_W),
+                                                 "--format", "onnx", "--selftest"]),
+            ("convert --reverse", ["convert", "--reverse", "--checkpoint", ck, "--pth", str(base / "ref.pth.tar")]),
+            ("convert", ["convert", "--pth", str(base / "ref.pth.tar"), "--out", str(base / "back")])):
+        text, wall, counts = run_cli(argv, label)
+        out[label] = dict(wall_s=wall, counts=counts, last=text.strip().splitlines()[-1])
+    back, want = load_best(base / "back"), load_best(ck)
+    same = back.keys() == want.keys() and all(np.allclose(back[k].numpy(), want[k].numpy(), rtol=0, atol=CONVERT_ATOL)
+                                              for k in want)
+    pt2_counts = out["export --selftest"]["counts"]
+    ok = same and all(pt2_counts.get(k) for k in PER_FRAME["f32"])
+    log(f"[{'ok' if ok else 'FAIL'}] export / convert commands: the pt2 selftest launched {pt2_counts}; "
+        f"convert --reverse then convert gives back the state written (atol {CONVERT_ATOL}): {same}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: interop commands: state back {same}, pt2 launches {pt2_counts}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1881,6 +2104,15 @@ def main() -> int:
                      guided_bf16_ms=bf16_summary["step_ms"]["kernel"]["p50_ms"])
     cli_summary = cli_phase(reference)
 
+    # -- 8. export and interop: the torch.export program, the ONNX artifact,
+    # the export / convert commands
+    t_phase = time.perf_counter()
+    replay = {n: summary[n]["benchmark"]["device"]["p50_ms"] for n in SCHEDULES}
+    export_summary = {"program": export_program_phase(state, replay, smi), "onnx": onnx_phase(state, smi),
+                      "commands": interop_cli_phase(state)}
+    export_summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[ok] phase 8 (export and interop): {export_summary['wall_s']:.1f} s")
+
     # -- report: one entry per kernel form; sums per two-stream frame over
     # the mixed main path for the serving kernels, per step-1 train step for
     # K2's K x K form and K5, per guided train step for the guided backward
@@ -1890,7 +2122,7 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke_calls.json").write_text(json.dumps(
         {"card": smi, "engines": summary, "training": train_summary, "guided_training": guided_summary,
-         "guided_training_bf16": bf16_summary, "cli": cli_summary,
+         "guided_training_bf16": bf16_summary, "cli": cli_summary, "export": export_summary,
          "calls": [{"key": repr(k), **v}
                    for k, v in {**results, **wire_results, **train_results, **guided_results,
                                 **bf16_results}.items()]},

@@ -6,6 +6,8 @@
   python -m nconv_tpu_torch infer --checkpoint ... --rgb-glob ... --depth-glob ...
   python -m nconv_tpu_torch bench [--throughput --batch 8 | --train]
   python -m nconv_tpu_torch profile [--mixed]
+  python -m nconv_tpu_torch export --checkpoint checkpoints/g --out model.pt2 [--format onnx]
+  python -m nconv_tpu_torch convert --pth ref.pth.tar --out checkpoints/converted [--reverse]
 
 Every command runs on the card (``--device cuda``, the default: the
 hand-written kernels) unless given ``--device cpu`` (their plain PyTorch
@@ -131,6 +133,54 @@ def build_parser() -> argparse.ArgumentParser:
         help="profile the mixed schedule (bf16 features, f32 depth path), BN folded",
     )
     _add_device(pp)
+
+    pe = sub.add_parser("export", help="export the guided net (a torch.export program or the deployment ONNX)")
+    pe.add_argument("--checkpoint", required=True)
+    pe.add_argument("--out", required=True)
+    pe.add_argument("--height", type=int, default=480)
+    pe.add_argument("--width", type=int, default=640)
+    pe.add_argument(
+        "--batch", type=int, default=None,
+        help="fixed batch size; default exports a dynamic batch axis (the reference ONNX contract)",
+    )
+    pe.add_argument(
+        "--format", choices=("pt2", "onnx"), default="pt2",
+        help="pt2 = a torch.export program of the BN-folded net, run on --device (on the card its "
+             "kernels are the hand-written ones); onnx = the reference's deployment artifact, traced "
+             "from the plain path on the CPU, always dynamic-batch, --batch ignored",
+    )
+    pe.add_argument(
+        "--kernel-mode", choices=("softplus", "raw"), default="softplus",
+        help="step-1 kernels: 'softplus' for models trained here (pos_fn='softplus'), 'raw' for "
+             "checkpoints converted with --kernel-mode raw (pos_fn='identity')",
+    )
+    pe.add_argument(
+        "--selftest", action="store_true",
+        help="validate the artifact: pt2 reloaded and run against the eager export (b = 1, 2); onnx "
+             "checked for the contract and executed by the port's numpy executor "
+             "against the plain path (<1e-4 rel RMSE)",
+    )
+    _add_device(pe)
+
+    pc = sub.add_parser(
+        "convert",
+        help="convert a reference .pth.tar checkpoint (or, with --reverse, write one of ours in the "
+             "reference format)",
+    )
+    pc.add_argument("--pth", required=True,
+                    help="reference .pth.tar: the input, or with --reverse the output path")
+    pc.add_argument("--out", help="destination checkpoint (forward mode)")
+    pc.add_argument("--model", choices=["unguided", "guided"], default="guided")
+    pc.add_argument(
+        "--kernel-mode", choices=["raw", "softplus_inverse"], default="softplus_inverse",
+        help="softplus_inverse (default) makes the converted checkpoint work with the default "
+             "pos_fn='softplus' models; 'raw' keeps reference weights verbatim and needs --pos-fn "
+             "identity (--kernel-mode raw for export). With --reverse the default writes the "
+             "effective softplus'd kernels (what a reference checkpoint carries); 'raw' copies them",
+    )
+    pc.add_argument("--reverse", action="store_true",
+                    help="write OUR checkpoint (--checkpoint) as a reference-format .pth.tar at --pth")
+    pc.add_argument("--checkpoint", help="our checkpoint to write (reverse mode)")
 
     pv = sub.add_parser("eval", help="evaluate a checkpoint on a dataset")
     _add_train_common(pv)
@@ -476,6 +526,79 @@ def cmd_profile(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    from .training import load_best
+
+    state = load_best(args.checkpoint)
+    if args.format == "onnx":
+        from .compat import export_guided_onnx, read_onnx_summary, selftest_guided_onnx
+
+        path = export_guided_onnx(state, args.out, height=args.height, width=args.width,
+                                  kernel_mode=args.kernel_mode)
+        s = read_onnx_summary(path)
+        print(f"exported deployment ONNX to {path} (opset {s['opset']}, inputs {s['inputs']}, "
+              f"outputs {s['outputs']}, {s['total_weight_floats']} weight floats)")
+        if args.selftest:
+            s = selftest_guided_onnx(path, state, height=args.height, width=args.width,
+                                     kernel_mode=args.kernel_mode)
+            print("selftest: structure OK; executed by the numpy executor, rel RMSE vs the plain path "
+                  f"{s['exec_rel_rmse']:.3g}")
+        return 0
+    from .compat.onnx_export import selftest_frames
+    from .models import GuidedDepthNet, maybe_fold, resolve_device
+    from .runtime import export_guided, load_exported, save_exported
+
+    dev = resolve_device(args.device)
+    pos_fn = "softplus" if args.kernel_mode == "softplus" else "identity"
+    model, state = maybe_fold(GuidedDepthNet(step1_pos_fn=pos_fn, device=dev), state)
+    model.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    path = save_exported(export_guided(model, height=args.height, width=args.width, batch=args.batch),
+                         args.out)
+    print(f"exported a torch.export program ({dev.type}) to {path}")
+    if args.selftest:
+        call, worst = load_exported(path), 0.0
+        for b in ((1, 2) if args.batch is None else (args.batch,)):
+            rgb, dep = (torch.from_numpy(a).permute(0, 2, 3, 1).to(dev) for a in
+                        selftest_frames(args.height, args.width, b))
+            got, want = call(rgb, dep, rgb, dep), model.export(rgb, dep, rgb, dep)
+            worst = max([worst] + [float((g.double() - w.double()).norm() / w.double().norm().clamp_min(1e-30))
+                                   for g, w in zip(got, want)])
+        if worst >= 1e-4:
+            raise SystemExit(f"selftest: the reloaded program is {worst:.3g} rel RMSE from the eager export")
+        print(f"selftest: reloaded, rel RMSE vs the eager export {worst:.3g}")
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from .compat import (
+        convert_guided_state_dict,
+        convert_unguided_state_dict,
+        load_pth_tar,
+        save_pth_tar,
+    )
+    from .training import load_best, save_best
+
+    if args.reverse:
+        if not args.checkpoint:
+            print("--reverse needs --checkpoint", file=sys.stderr)
+            return 2
+        # the reverse of the forward default: 'softplus_inverse' stores raw
+        # parameters for pos_fn='softplus' models, so softplus them back
+        mode = "softplus" if args.kernel_mode == "softplus_inverse" else "raw"
+        save_pth_tar(args.pth, load_best(args.checkpoint), model=args.model, kernel_mode=mode)
+        print(f"exported {args.checkpoint} -> {args.pth}")
+        return 0
+    if not args.out:
+        print("forward conversion needs --out", file=sys.stderr)
+        return 2
+    convert = convert_guided_state_dict if args.model == "guided" else convert_unguided_state_dict
+    state = convert(load_pth_tar(args.pth), kernel_mode=args.kernel_mode)
+    directory, name = os.path.split(args.out)
+    path = save_best(directory or ".", name, state)
+    print(f"converted {args.pth} -> {path}")
+    return 0
+
+
 COMMANDS = {
     "train-step1": cmd_train_step1,
     "train-step2": cmd_train_step2,
@@ -483,6 +606,8 @@ COMMANDS = {
     "profile": cmd_profile,
     "eval": cmd_eval,
     "infer": cmd_infer,
+    "export": cmd_export,
+    "convert": cmd_convert,
 }
 
 

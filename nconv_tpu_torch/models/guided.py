@@ -36,6 +36,9 @@ from .layers import (
 )
 from .unguided import NConvUNet
 
+# names of the deployed forward's inputs (the reference's ONNX contract)
+INPUT_NAMES = ["rgb_0", "depth_0", "rgb_1", "depth_1"]
+
 # export-mode sensor border
 BORDER_TOP = 45
 BORDER_BOTTOM = 45
@@ -47,6 +50,7 @@ def border_mask(h: int, w: int, *, device=None, dtype=torch.float32) -> torch.Te
     built once per (h, w, device, dtype) (:data:`..ops.tables.TABLES`); do
     not write to it."""
     device = torch.device("cpu" if device is None else device)
+    h, w = int(h), int(w)  # the ONNX tracer passes sizes as tensors
 
     def build():
         m = np.ones((1, 1, h, w), np.float32)
@@ -212,9 +216,13 @@ class GuidedDepthNet(nn.Module):
 
     @torch.no_grad()
     def export(self, rgb0, depth0, rgb1, depth1):
-        """Deployment forward: final-scale depth per stream, border-masked."""
-        b = rgb0.shape[0]
+        """Deployment forward: final-scale depth per stream, border-masked.
+
+        The streams are split by both their batch sizes, so that under
+        ``torch.export`` each output's batch is its own input's symbol; a
+        slice ``[b:]`` would leave a size ``b0 + b1 - b`` whose contiguity
+        check guards it against 1 and refuses batch 1."""
         d3 = self._backbone(rgb0, depth0, rgb1, depth1)[-1]
         d3 = d3 * border_mask(d3.shape[2], d3.shape[3], device=d3.device, dtype=d3.dtype)
-        out = d3.permute(0, 2, 3, 1)
-        return out[:b], out[b:]
+        out0, out1 = d3.permute(0, 2, 3, 1).split([rgb0.shape[0], rgb1.shape[0]])
+        return out0, out1

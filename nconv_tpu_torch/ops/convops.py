@@ -181,9 +181,18 @@ def conv3x3(
         out_dtype = torch.float32 if parts[0].dtype == torch.uint8 else parts[0].dtype
     if shortcut is not None and not relu:
         raise ValueError("the residual form is relu(conv + b) + shortcut")
+    if torch.compiler.is_exporting():
+        from . import library
+        return library.conv3x3(parts, weight, bias, stride, relu, shortcut, out_dtype)
     if not kernels.on_card(*parts, weight, bias, shortcut):
         return conv3x3_plain(parts, weight, bias, stride=stride, relu=relu,
                              shortcut=shortcut, out_dtype=out_dtype)
+    return _conv3x3_on_card(parts, weight, bias, stride, relu, shortcut, out_dtype)
+
+
+def _conv3x3_on_card(parts, weight, bias, stride, relu, shortcut, out_dtype):
+    """The kernel of :func:`conv3x3`'s form for this call: the tensor
+    cores, the thin form or the CUDA-core form."""
     if on_tensor_cores(parts[0].dtype, out_dtype, weight.shape[0]):
         return _conv_tc_kernel(parts, weight, bias, stride, relu, shortcut)
     if on_thin(parts[0].dtype, out_dtype, weight.shape[0], stride):
@@ -298,8 +307,15 @@ def conv_transpose4x4s2(
     weight (cin, cout, 4, 4); output (B, cout, 2H, 2W) in the parts' dtype."""
     parts = list(parts)
     _check_same_geometry(parts)
+    if torch.compiler.is_exporting():
+        from . import library
+        return library.conv_transpose4x4s2(parts, weight, bias, relu)
     if not kernels.on_card(*parts, weight, bias):
         return conv_transpose4x4s2_plain(parts, weight, bias, relu=relu)
+    return _conv_transpose4x4s2_on_card(parts, weight, bias, relu)
+
+
+def _conv_transpose4x4s2_on_card(parts, weight, bias, relu):
     if parts[0].dtype == torch.bfloat16:
         return _conv_transpose_tc_kernel(parts, weight, bias, relu)
     return _conv_transpose_kernel(parts, weight, bias, relu)
@@ -361,8 +377,15 @@ def conv3x3_chain2(x, w1, b1, w2, b2) -> torch.Tensor:
     ``csrc/conv_chain_tc.cu``) take cmid and cout up to 64, the fusion
     stages' widths: a block holds every intermediate channel of its tile in
     shared memory, run as 32 or 64 channels. A wider chain raises."""
+    if torch.compiler.is_exporting():
+        from . import library
+        return library.conv3x3_chain2(x, w1, b1, w2, b2)
     if not kernels.on_card(x, w1, b1, w2, b2):
         return conv3x3_chain2_plain(x, w1, b1, w2, b2)
+    return _conv3x3_chain2_on_card(x, w1, b1, w2, b2)
+
+
+def _conv3x3_chain2_on_card(x, w1, b1, w2, b2):
     if x.dtype == torch.bfloat16:
         return _chain_tc_kernel(x, w1, b1, w2, b2)
     return _chain_kernel(x, w1, b1, w2, b2)

@@ -117,6 +117,10 @@ def nconv2d_fused(
     d_parts, c_parts = list(d_parts), list(c_parts)
     up2 = list(up2) if up2 is not None else [False] * len(d_parts)
     _check_parts(d_parts, c_parts, up2)
+    if torch.compiler.is_exporting():
+        from . import library
+        return library.nconv2d_fused(d_parts, c_parts, weight, bias, padding=padding, up2=up2,
+                                     crop=crop, pool_out=pool_out, eps=eps)
     if not kernels.on_card(*d_parts, *c_parts, weight, bias):
         return nconv2d_fused_plain(
             d_parts, c_parts, weight, bias, padding=padding, up2=up2,

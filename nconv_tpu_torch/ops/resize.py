@@ -1,7 +1,11 @@
 """Resizing with torch's conventions, NCHW, from explicit index and weight
 tables (computed in float32, as torch's own kernels compute them), each
 built once per (sizes, device, dtype) and kept on the device
-(:data:`.tables.TABLES`)."""
+(:data:`.tables.TABLES`).
+
+Spatial sizes are read as Python ints: the ONNX tracer hands a tensor's
+sizes over as tensors, and H and W are fixed in a traced graph (only the
+batch axis is dynamic)."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,8 +22,8 @@ def _nearest_indices(out_size: int, in_size: int) -> np.ndarray:
 
 def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Nearest-neighbour resize of the last two axes to ``size=(H, W)``."""
-    h_out, w_out = size
-    h_in, w_in = x.shape[-2:]
+    h_out, w_out = map(int, size)
+    h_in, w_in = map(int, x.shape[-2:])
     if (h_out, w_out) == (h_in, w_in):
         return x
     return x.index_select(-2, _nearest_table(h_out, h_in, x.device)).index_select(
@@ -68,7 +72,7 @@ def _linear_table(out_size: int, in_size: int, align_corners: bool, device: torc
 
 
 def _lerp_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool) -> torch.Tensor:
-    lo, hi, frac = _linear_table(out_size, x.shape[axis], align_corners, x.device, x.dtype)
+    lo, hi, frac = _linear_table(out_size, int(x.shape[axis]), align_corners, x.device, x.dtype)
     shape = [1] * x.ndim
     shape[axis] = -1
     f = frac.view(shape)
@@ -79,8 +83,8 @@ def resize_bilinear(
     x: torch.Tensor, size: tuple[int, int], *, align_corners: bool
 ) -> torch.Tensor:
     """Bilinear resize of the last two axes, rows first, then columns."""
-    h_out, w_out = size
-    h_in, w_in = x.shape[-2:]
+    h_out, w_out = map(int, size)
+    h_in, w_in = map(int, x.shape[-2:])
     if (h_out, w_out) == (h_in, w_in):
         return x
     if h_out != h_in:
@@ -97,6 +101,6 @@ def torch_scaled_size(in_size: int, scale: float) -> int:
 
 def downscale_bilinear(x: torch.Tensor, factor: int, *, align_corners: bool = True):
     """``F.interpolate(x, scale_factor=1/factor, mode='bilinear')`` parity."""
-    h, w = x.shape[-2:]
+    h, w = map(int, x.shape[-2:])
     size = (torch_scaled_size(h, 1.0 / factor), torch_scaled_size(w, 1.0 / factor))
     return resize_bilinear(x, size, align_corners=align_corners)

@@ -2,8 +2,9 @@
 (``--device cpu``): the parser, train-step1 -> eval and train-step2 ->
 infer end to end, eval and infer against the JAX package's commands on the
 same weights (metrics within 1e-4 rel; dense maps within 1e-4 rel RMSE and
-one uint16 step), the inferno dumps pixel-equal to the JAX package's, and
-bench printing the JAX command's keys."""
+one uint16 step), the inferno dumps pixel-equal to the JAX package's,
+bench printing the JAX command's keys, and export (pt2, onnx) and convert
+(both directions, and after the JAX command's ``convert --reverse``)."""
 import json
 import os
 
@@ -15,6 +16,7 @@ from PIL import Image
 import jax.numpy as jnp
 
 from nconv_tpu.cli import main as jmain
+from nconv_tpu.models import GuidedDepthNet as JGuided
 from nconv_tpu.cli import _SyntheticDataset as JSynthetic
 from nconv_tpu.data import Loader as JLoader
 from nconv_tpu.data import io as jio
@@ -25,6 +27,9 @@ from nconv_tpu.training import make_unguided_predict as jmake_unguided_predict
 from nconv_tpu.training import save_best as jsave_best
 from nconv_tpu.utils import save_depth as jsave_depth
 from nconv_tpu_torch.cli import build_parser, main
+from nconv_tpu_torch.compat import read_onnx_summary
+from nconv_tpu_torch.models import GuidedDepthNet, maybe_fold
+from nconv_tpu_torch.runtime import load_exported
 from nconv_tpu_torch.convert import from_jax_unguided_variables, from_jax_variables
 from nconv_tpu_torch.data import io, png
 from nconv_tpu_torch.training import load_best, save_best
@@ -74,9 +79,17 @@ def test_parser():
     p = build_parser()
     with pytest.raises(SystemExit):
         p.parse_args([])
-    for cmd in ("export", "convert"):  # wait for the compat slice
+    for cmd in ("export", "convert"):  # their required flags
         with pytest.raises(SystemExit):
             p.parse_args([cmd])
+    a = p.parse_args(["export", "--checkpoint", "c", "--out", "m.pt2"])
+    assert (a.format, a.kernel_mode, a.batch, a.height, a.width, a.device, a.selftest) == (
+        "pt2", "softplus", None, 480, 640, "cuda", False)
+    with pytest.raises(SystemExit):
+        p.parse_args(["export", "--checkpoint", "c", "--out", "m", "--format", "stablehlo"])  # pt2 replaces it
+    a = p.parse_args(["convert", "--pth", "r.pth.tar", "--reverse", "--checkpoint", "c"])
+    assert (a.model, a.kernel_mode, a.reverse, a.checkpoint, a.out) == (
+        "guided", "softplus_inverse", True, "c", None)
     a = p.parse_args(["train-step1", "--lr", "1e-2", "1e-3", "--weight-decay", "1e-7", "1e-2",
                       "--grid-parallel", "--two-stream"])
     assert (a.lr, a.weight_decay, a.grid_parallel, a.two_stream, a.device) == (
@@ -220,3 +233,85 @@ def test_bench_prints_the_jax_commands_keys(capsys):
     assert set(got) == {"backend", "height", "width", "precision", "unguided_train_ms_per_batch",
                         "unguided_batch_size", "guided_train_ms_per_batch", "guided_batch_size"}
     assert got["backend"] == "cpu" and got["guided_train_ms_per_batch"] > 0
+
+
+def guided_inputs(b, h, w, seed):
+    """NHWC f32 (rgb, depth) with a smooth sparse depth."""
+    rng = np.random.default_rng(seed)
+    i, j = np.mgrid[0:h, 0:w]
+    truth = (5 + 3 * np.sin(i / 9) + 2 * np.cos(j / 11)).astype(np.float32)[None, :, :, None]
+    return ((rng.random((b, h, w, 3)) * 255).astype(np.float32),
+            (truth * (rng.random((b, h, w, 1)) < 0.06)).astype(np.float32))
+
+
+def test_export_pt2_serves_the_eager_export(tmp_path, capsys):
+    """``export`` (pt2, the default): the folded net's program, reloaded,
+    serves b = 1 and 2 within 1e-6 of the eager export; its selftest runs;
+    without ``--device cpu`` it needs the card."""
+    state = from_jax_variables(jax_variables())
+    ck = save_best(tmp_path, "g", state)
+    argv = ["export", "--checkpoint", ck, "--out", str(tmp_path / "g.pt2"), "--height", "104", "--width", "128"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    assert main([*argv, "--device", "cpu", "--selftest"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("selftest: reloaded")
+    call = load_exported(tmp_path / "g.pt2")
+    model, folded = maybe_fold(GuidedDepthNet(device="cpu"), state)
+    model.load_state_dict(folded)
+    for b in (1, 2):
+        rgb, d = (torch.from_numpy(a) for a in guided_inputs(b, 104, 128, b))
+        for g, w in zip(call(rgb, d, rgb, d), model.export(rgb, d, rgb, d)):
+            assert g.shape == (b, 104, 128, 1) and float((g - w).norm() / w.norm()) <= 1e-6
+
+
+def test_export_onnx_with_selftest(tmp_path, capsys):
+    ck = save_best(tmp_path, "g", from_jax_variables(jax_variables()))
+    out = tmp_path / "g.onnx"
+    assert main(["export", "--checkpoint", ck, "--out", str(out), "--height", "128", "--width", "160",
+                 "--format", "onnx", "--selftest"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith(f"exported deployment ONNX to {out}") and "executed by the numpy executor" in lines[-1]
+    s = read_onnx_summary(str(out))
+    assert (s["opset"], s["inputs"], s["outputs"]) == (17, ["rgb_0", "depth_0", "rgb_1", "depth_1"],
+                                                      ["output_depth_0", "output_depth_1"])
+
+
+def test_convert_reverse_roundtrip(tmp_path):
+    """convert --reverse writes a reference .pth.tar that convert maps back
+    to the state written; each direction refuses a missing destination."""
+    state = from_jax_variables(jax_variables())
+    ck = save_best(tmp_path, "g", state)
+    pth = str(tmp_path / "ours.pth.tar")
+    assert main(["convert", "--reverse", "--pth", pth]) == 2
+    assert main(["convert", "--reverse", "--checkpoint", ck, "--pth", pth]) == 0
+    ckpt = torch.load(pth, map_location="cpu", weights_only=True)
+    assert set(ckpt) == {"epoch", "state_dict", "stats"}
+    assert all(k.startswith("module.") for k in ckpt["state_dict"])
+    assert main(["convert", "--pth", pth]) == 2
+    assert main(["convert", "--pth", pth, "--out", str(tmp_path / "back")]) == 0
+    back = load_best(tmp_path / "back")
+    assert back.keys() == state.keys()
+    for k, v in state.items():
+        torch.testing.assert_close(back[k], v, rtol=0, atol=1e-6)
+
+
+def test_jax_reverse_then_port_convert_serves_the_jax_depth(tmp_path):
+    """A JAX checkpoint through the JAX command's ``convert --reverse``, then
+    the port's ``convert``: the port's model serves the JAX model's depth
+    (1e-4 rel RMSE, the f32 guided bar)."""
+    variables = jax_variables()
+    jck = jsave_best(str(tmp_path), "jax_g", variables)
+    pth = str(tmp_path / "ref.pth.tar")
+    assert jmain(["convert", "--reverse", "--checkpoint", jck, "--pth", pth]) == 0
+    assert main(["convert", "--pth", pth, "--out", str(tmp_path / "port_g")]) == 0
+    model = GuidedDepthNet(device="cpu")
+    model.load_state_dict(load_best(tmp_path / "port_g"))
+    rgb, d = guided_inputs(1, 104, 128, 9)
+    with torch.no_grad():
+        got = model.export(*(torch.from_numpy(a) for a in (rgb, d, rgb, d)))
+    want = JGuided().apply(variables, rgb, d, rgb, d, method=JGuided.export)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        assert np.abs(w).max() > 0
+        assert np.linalg.norm(g.double().numpy() - w) <= 1e-4 * np.linalg.norm(w)
