@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: the card's name and power limit, torch/CUDA versions,
-     and the build of the kernels from ``nconv_tpu_torch/csrc``;
+     the build of the kernels from ``nconv_tpu_torch/csrc`` and of the
+     host library from ``csrc/host``;
   2. every kernel against its plain PyTorch version on the card, at every
      distinct shape the main path launches (KITTI 352x1216, two streams;
      in the mixed schedule the bf16 convs and transpose convs run on the
@@ -42,8 +43,8 @@ Phases (any failure raises and the script exits non-zero):
      (encoder 0 on ``conv_tc`` at cin 3) against its plain version; the
      yuv420 + COO wire's three clocks; an overflowing COO capacity counted
      and warned; ``run()`` over the frames in order and bitwise equal to
-     single calls, with its frames/s; the wire encoders' host times;
-     ``benchmark_throughput`` at batch 8 (B = 16), bf16, with every
+     single calls, with its frames/s (the wire encoders' host times: phase
+     9); ``benchmark_throughput`` at batch 8 (B = 16), bf16, with every
      distinct kernel call it makes against its plain version;
   4. step-1 training: ``Trainer(UnguidedTask(NConvUNet()))`` at full width
      on KITTI 352x1216, batch 4, adamw, on the JAX bench's synthetic batch.
@@ -124,6 +125,26 @@ Phases (any failure raises and the script exits non-zero):
      ``export --format onnx --selftest``, ``convert --reverse`` and
      ``convert`` through ``run_cli``, the state converted back equal to the
      one written.
+  9. data parallelism and the native host data path: (a) one adamw step
+     of step 1 at B = 4 through ``Trainer(mesh=make_mesh())`` on a
+     world-size-1 NCCL group, bitwise the plain ``Trainer``; (b) world size
+     2 over gloo, two processes (this script with ``--dp-rank``) both on
+     cuda:0, each rank's model from another seed: one step of step 1 at B =
+     4 (2 + 2) and one of guided f32 at B = 2 (1 + 1, train-mode BN across
+     the ranks), the loss and every gradient against one process on the
+     whole batch (``grad_checks``: loss rel 1e-6, each gradient within
+     max(1e-4, 4x the whole batch's plain f32 path's distance from its
+     float64 plain run)); (c)
+     ``DataParallelEngine`` on [cuda:0] and [cuda:0, cuda:0], f32 and
+     mixed, N = 3 rigs (padded to 4 on two replicas) against a single-rig
+     ``export`` of each (rel RMSE 1e-6 / 1e-4, bitwise or not), frames/s at
+     N = 8 beside ``benchmark_throughput``'s; (d) the C wire encoders
+     against ``runtime/wires.py`` (depth and COO bitwise, YUV within one
+     step) with host ms of both, the engines' ``synced`` / ``e2e`` p50
+     with the plain and the C encoders in turns, the C PNG reader bitwise
+     ``png.py``'s plain unfilter on a 352x1216 file of each row filter
+     with ms of both, and the 4-thread / 1-thread read rate (printed, not
+     asserted).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``; every checked call's numbers go
@@ -823,16 +844,19 @@ def step_sums(calls, results, kinds):
 
 
 def grad_checks(loss_k, grads_k, loss_p, grads_p, loss_64, grads_64, label, *,
-                loss_bar=LOSS_BAR, grad_bar=GRAD_BAR):
+                loss_bar=LOSS_BAR, grad_bar=GRAD_BAR, plain_grads=None):
     """Kernel path vs plain path: the loss within ``loss_bar`` and each
     gradient within max(``grad_bar``, GRAD_NOISE x the plain path's own error
-    against the plain f64 path). Raises on a miss; returns the per-gradient
+    against the plain f64 path). ``plain_grads`` gives the plain path's
+    gradients where ``grads_p`` is another reference (phase 9: one process
+    on the whole batch). Raises on a miss; returns the per-gradient
     numbers."""
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    plain_grads = grads_p if plain_grads is None else plain_grads
     checks, missed = {}, []
     for name in grads_p:
         vs_plain = rel_rmse(grads_k[name], grads_p[name])
-        rounding = rel_rmse(grads_p[name], grads_64[name])  # the plain path's own error
+        rounding = rel_rmse(plain_grads[name], grads_64[name])  # the plain path's own error
         bar = max(grad_bar, GRAD_NOISE * rounding)
         checks[name] = dict(vs_plain=vs_plain, kernel_vs_f64=rel_rmse(grads_k[name], grads_64[name]),
                             plain_vs_f64=rounding, bar=bar)
@@ -1254,15 +1278,15 @@ def wire_phase(state, frames, g, results, captured):
     captures the same launches; COO bitwise the dense wire; the YUV wires
     against the dense wire (natural content: their bars; synthetic frames:
     yuv420's bar), their conv_tc calls at cin 3 checked; the COO overflow
-    counted; ``run()`` in order and bitwise the single calls; the wire
-    encoders' host times; ``benchmark_throughput`` at batch 8, each of its
+    counted; ``run()`` in order and bitwise the single calls;
+    ``benchmark_throughput`` at batch 8, each of its
     distinct kernel calls checked. Returns (summary, checked calls)."""
     import warnings
 
     import numpy as np
     import torch
 
-    from nconv_tpu_torch.runtime import StreamingEngine, benchmark, benchmark_throughput, wires
+    from nconv_tpu_torch.runtime import StreamingEngine, benchmark, benchmark_throughput
 
     def built(**kw):
         fresh_peak()
@@ -1370,18 +1394,6 @@ def wire_phase(state, frames, g, results, captured):
         raise SystemExit("chip_smoke: run() differs from single calls")
     del dense, single, got
 
-    f = frames[0]
-    rgb_u8 = f[0]
-    encoders = {
-        "depth_wire": lambda: wires.encode_depth_wire(f[1]),
-        "depth_coo": lambda: wires.encode_depth_coo(f[1], (H * W // 8 + 511) // 512 * 512),
-        "yuv420": lambda: wires.encode_yuv420(rgb_u8),
-        "yuv422": lambda: wires.encode_yuv422(rgb_u8),
-    }
-    out["encode_host_ms"] = {k: host_ms(fn) for k, fn in encoders.items()}
-    log("    wire encode on the host, ms a stream (median of 20): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in out["encode_host_ms"].items()))
-
     fresh_peak()
     r = Recorder()
     with r.recording():
@@ -1459,10 +1471,11 @@ STEP1_FORMS = ("nconv", "conv_kxk", "filtergrad")  # K1, K2's K x K form, K5
 REPLAY_ORDER = ("serial", "lockstep", "lockstep", "serial")
 
 
-def write_png_cycling_filters(path, rgb):
-    """An 8-bit RGB PNG whose rows take the five filters in turn (None,
-    Sub, Up, Average, Paeth), written from the PNG specification's filter
-    definitions (independent of the port's encoder, which writes filter 0)."""
+def write_png_cycling_filters(path, rgb, filters=(0, 1, 2, 3, 4)):
+    """An 8-bit RGB PNG whose rows take ``filters`` in turn (by default all
+    five: None, Sub, Up, Average, Paeth), written from the PNG
+    specification's filter definitions (independent of the port's encoder,
+    which writes filter 0)."""
     import struct
     import zlib
 
@@ -1479,7 +1492,7 @@ def write_png_cycling_filters(path, rgb):
     p = left + up - upleft
     pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
     paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    kind = np.arange(h) % 5
+    kind = np.asarray(filters)[np.arange(h) % len(filters)]
     pred = np.stack([np.zeros_like(x), left, up, (left + up) // 2, paeth])[kind, np.arange(h)]
     raw = np.concatenate([kind[:, None].astype(np.uint8), ((x - pred) & 255).astype(np.uint8)], axis=1)
 
@@ -1999,6 +2012,321 @@ def interop_cli_phase(state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism and the native host data path
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_B = {"step1": 4, "guided": 2}  # the whole batch of the world-size-2 steps; a rank holds half
+DP_RIGS, DP_FPS_RIGS, DP_FPS_CALLS = 3, 8, 5  # the engine's ragged N (padded to 4); frames/s at N = 8
+DP_ENGINE_BARS = {"f32": 1e-6, "mixed": 1e-4}  # a rig rel RMSE against the single-rig export
+DECODE_FILES, DECODE_THREADS = 16, 4
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_cfg():
+    from nconv_tpu_torch.training import OptimizerConfig, TrainConfig
+
+    # a rate of 0: the step leaves each gradient in .grad and the weights as they were
+    return TrainConfig(log_every=0, optimizer=OptimizerConfig("sgd", 0.0, 0.0, 0.0))
+
+
+def _dp_task(case, seed, step1_state):
+    from nconv_tpu_torch.models import GuidedDepthNet, NConvUNet
+    from nconv_tpu_torch.training import GuidedTask, UnguidedTask
+
+    if case == "step1":
+        return UnguidedTask(NConvUNet(device="cuda", seed=seed))
+    return GuidedTask(GuidedDepthNet(device="cuda", seed=seed), step1_state=step1_state)
+
+
+def dp_rank_main(rank, port, work):
+    """A rank of phase 9's world-size-2 group: gloo over CUDA tensors, both
+    ranks on cuda:0 (NCCL refuses two ranks on one device). Each rank's
+    model starts from another seed (the trainer broadcasts rank 0's); one
+    train step of step 1 and one of guided f32 (train-mode BN across the
+    ranks) on its half of the batch; the gradients go to ``work``."""
+    import torch
+    import torch.distributed as dist
+
+    from nconv_tpu_torch import kernels, parallel
+    from nconv_tpu_torch.training import Trainer
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=DP_WORLD)
+    mesh = parallel.make_mesh(devices=["cuda:0"])
+    inp = torch.load(Path(work) / "inputs.pt", weights_only=False)
+    out = {"mesh": (mesh.rank, mesh.world, str(mesh.device), dist.get_backend())}
+    for case in ("step1", "guided"):
+        trainer = Trainer(_dp_task(case, rank, inp["step1_state"]), _dp_cfg(), log_fn=lambda m: None, mesh=mesh)
+        shard = {k: torch.from_numpy(v).cuda() for k, v in parallel.shard_batch(inp[case], mesh).items()}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(shard))
+        torch.cuda.synchronize()
+        out[case] = dict(loss=loss, grads={n: p.grad.double().cpu() for n, p in trainer.model.named_parameters()
+                                           if p.grad is not None},
+                         launches=nonzero(kernels.launch_counts()), step_s=time.perf_counter() - t0,
+                         batch=int(shard["gt"].shape[0]))
+    torch.save(out, Path(work) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def dp_training():
+    """(a) world size 1 over NCCL bitwise the plain Trainer; (b) world size
+    2 over gloo on the one card against one process on the whole batch."""
+    import torch
+    import torch.distributed as dist
+
+    from nconv_tpu_torch import parallel
+    from nconv_tpu_torch.data import bench_batch
+    from nconv_tpu_torch.models import NConvUNet
+    from nconv_tpu_torch.training import OptimizerConfig, TrainConfig, Trainer, UnguidedTask
+
+    out = {}
+    # (a) one adamw step of step 1 at B = 4 through a world-size-1 NCCL mesh
+    batch = {k: torch.from_numpy(v).cuda() for k, v in bench_batch(TRAIN_B, H, W).items()}
+    cfg = TrainConfig(log_every=0, optimizer=OptimizerConfig("adamw", 1e-3, 1e-7))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        runs = []
+        for m in (mesh, None):
+            t = Trainer(UnguidedTask(NConvUNet(device="cuda", seed=0)), cfg, log_fn=lambda s: None, mesh=m)
+            loss = t.train_step(batch)
+            runs.append((loss, {n: p.grad for n, p in t.model.named_parameters()}, t.model.state_dict()))
+        torch.cuda.synchronize()
+        (lm, gm, sm), (lp, gp, sp) = runs
+        bitwise = (torch.equal(lm, lp) and all(torch.equal(gm[k], gp[k]) for k in gp)
+                   and all(torch.equal(sm[k], sp[k]) for k in sp))
+        out["world1_nccl"] = dict(backend=dist.get_backend(), world=mesh.world, device=str(mesh.device),
+                                  bitwise=bitwise, loss=float(lm))
+    finally:
+        dist.destroy_process_group()
+    log(f"[{'ok' if bitwise else 'FAIL'}] data-parallel step 1, world size 1 over NCCL on {mesh.device}, B {TRAIN_B}: "
+        f"loss, every gradient and every weight after an adamw step bitwise the plain Trainer's")
+    if not bitwise:
+        raise SystemExit("chip_smoke: a world-size-1 mesh differs from the plain Trainer")
+
+    # (b) world size 2: two processes on cuda:0 over gloo
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dp"
+    work.mkdir(parents=True, exist_ok=True)
+    step1_state = NConvUNet(device="cuda", seed=0).state_dict()
+    batches = {c: bench_batch(b, H, W) for c, b in DP_B.items()}
+    torch.save({**batches, "step1_state": {k: v.cpu() for k, v in step1_state.items()}}, work / "inputs.pt")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r), str(port),
+                               str(work)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_WORLD)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    spawn_s = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: data-parallel rank {r} failed (rc {p.returncode}):\n{text[-4000:]}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    cfg = _dp_cfg()
+    for case in ("step1", "guided"):
+        whole = {k: torch.from_numpy(v).cuda() for k, v in batches[case].items()}
+        if case == "step1":
+            step = lambda dtype, plain: step_grads(whole, dtype, cfg, plain=plain)
+        else:
+            from nconv_tpu_torch.models import GuidedDepthNet
+
+            state0 = GuidedDepthNet(device="cuda", seed=0).state_dict()
+            step = lambda dtype, plain: guided_step(whole, dtype, cfg, state0, step1_state, plain=plain)[:2]
+        (loss_k, grads_k), (_, grads_p), (loss_64, grads_64) = (
+            step(torch.float32, False), step(torch.float32, True), step(torch.float64, True))
+        r0, r1 = (r[case] for r in ranks)
+        same = r0["loss"] == r1["loss"] and all(torch.equal(r0["grads"][k], r1["grads"][k]) for k in r0["grads"])
+        if not same or set(r0["grads"]) != set(grads_k):
+            raise SystemExit(f"chip_smoke: the two ranks' {case} losses or gradients differ")
+        sharded = {k: v.cuda() for k, v in r0["grads"].items()}
+        label = f"data-parallel {case}, world size 2 (gloo, both ranks on cuda:0, B {DP_B[case]} = 2 x {r0['batch']})"
+        loss_err, checks = grad_checks(r0["loss"], sharded, loss_k, grads_k, loss_64, grads_64,
+                                       label + ", against one process on the whole batch", plain_grads=grads_p)
+        out[f"world2_{case}"] = dict(loss=r0["loss"], whole_loss=loss_k, loss_rel=loss_err,
+                                     worst_grad=max(c["vs_plain"] / c["bar"] for c in checks.values()),
+                                     launches=r0["launches"], step_s=r0["step_s"], mesh=ranks[0]["mesh"])
+        log(f"    {case} rank 0 launched {r0['launches']} in its step ({r0['step_s']:.2f} s, first step of the "
+            f"process); worst gradient at {out[f'world2_{case}']['worst_grad']:.3f} of its bar")
+    out["world2_spawn_s"] = spawn_s
+    log(f"[ok] world size 2: ranks {[r['mesh'] for r in ranks]}, both ranks bitwise equal, {spawn_s:.1f} s "
+        f"for both processes")
+    return out
+
+
+def dp_engine(state, throughput_fps):
+    """``DataParallelEngine`` on [cuda:0] and [cuda:0, cuda:0]: N = 3 rigs
+    against a single-rig ``export`` of each, and frames/s at N = 8."""
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch.parallel import DataParallelEngine
+
+    frames = synthetic_frames(DP_FPS_RIGS, seed=5)
+    # (N, H, W, C) float32 stacks of rgb0, depth0, rgb1, depth1
+    stack = lambda i, n: np.stack([f[i] if i % 2 == 0 else f[i][..., None] for f in frames[:n]]).astype(np.float32)
+    out = {}
+    for sched in SCHEDULES:
+        dtype = getattr(torch, SCHEDULES[sched])
+        rigs = [stack(i, DP_RIGS) for i in range(4)]
+        single = DataParallelEngine(state, height=H, width=W, devices=["cuda:0"], dtype=dtype).replicas[0]
+        want = []
+        with torch.no_grad():
+            for n in range(DP_RIGS):
+                want.append(single.export(*(torch.from_numpy(a[n:n + 1]).cuda() for a in rigs)))
+        del single
+        for devs in (["cuda:0"], ["cuda:0", "cuda:0"]):
+            eng = DataParallelEngine(state, height=H, width=W, devices=devs, dtype=dtype)
+            got = eng(*rigs)
+            err = max(rel_rmse(got[s][n:n + 1], want[n][s]) for n in range(DP_RIGS) for s in (0, 1))
+            bitwise = all(torch.equal(got[s][n:n + 1], want[n][s]) for n in range(DP_RIGS) for s in (0, 1))
+            shapes_ok = all(t.shape == (DP_RIGS, H, W, 1) and torch.isfinite(t).all() for t in got)
+            big = [stack(i, DP_FPS_RIGS) for i in range(4)]
+            eng(*big)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_FPS_CALLS):
+                eng(*big)
+            torch.cuda.synchronize()
+            fps = 2 * DP_FPS_RIGS * DP_FPS_CALLS / (time.perf_counter() - t0)
+            key = f"{sched}_x{len(devs)}"
+            ok = shapes_ok and err <= DP_ENGINE_BARS[sched]
+            out[key] = dict(devices=devs, rel_rmse=err, bitwise=bitwise, fps_n8=fps)
+            log(f"[{'ok' if ok else 'FAIL'}] DataParallelEngine {sched} on {devs}: N {DP_RIGS} (padded to "
+                f"{-(-DP_RIGS // len(devs)) * len(devs)}) against a single-rig export of each, rel RMSE {err:.2e} "
+                f"(bar {DP_ENGINE_BARS[sched]:.0e}), bitwise {bitwise}; N {DP_FPS_RIGS}: {fps:.1f} frames/s "
+                f"(2 a rig; host float32 stacks copied each call) beside benchmark_throughput's {throughput_fps:.1f} "
+                f"(bf16, one graph)")
+            if not ok:
+                raise SystemExit(f"chip_smoke: DataParallelEngine {sched} on {devs} misses its bar")
+            del eng, got
+    return out
+
+
+def native_phase(state, frames):
+    """The C host data path: encoders against ``wires.py`` with host ms,
+    the engines' ``synced`` / ``e2e`` p50 with the C encoders and with the
+    plain ones, the C PNG readers bitwise ``png.py``'s plain unfilter with
+    ms a 352x1216 frame by filter type, and the 4-thread / 1-thread rate.
+    Prints its numbers and asserts none of them."""
+    import warnings
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from nconv_tpu_torch.data import io, native, png
+    from nconv_tpu_torch.runtime import StreamingEngine, benchmark, wires
+
+    out = {}
+    f = frames[0]
+    rgb_u8, depth = f[0], f[1]
+    cap = (H * W // 8 + 511) // 512 * 512
+    cases = {
+        "depth_wire": (lambda m: m.encode_depth_wire(depth[None, :, :, None]), 0),
+        "depth_coo": (lambda m: m.encode_depth_coo(depth, cap), 0),
+        "yuv420": (lambda m: m.encode_yuv420(rgb_u8), 1),
+        "yuv422": (lambda m: m.encode_yuv422(rgb_u8), 1),
+    }
+    enc = {}
+    for name, (fn, steps) in cases.items():
+        c, p = fn(native), fn(wires)
+        arrays = [(a, b) for a, b in zip(c, p) if isinstance(a, np.ndarray)] if isinstance(c, tuple) else [(c, p)]
+        worst = max(int(np.abs(a.astype(np.int64) - b).max()) for a, b in arrays)
+        ok = worst <= steps and (name != "depth_coo" or c[2] == p[2])
+        enc[name] = dict(c_ms=host_ms(lambda: fn(native)), plain_ms=host_ms(lambda: fn(wires)), max_step=worst)
+        log(f"[{'ok' if ok else 'FAIL'}] C encoder {name} against wires.py at {H}x{W}: largest difference "
+            f"{worst} step(s) (allowed {steps}); host ms a stream, median of {REPS}: C {enc[name]['c_ms']:.3f}, "
+            f"numpy {enc[name]['plain_ms']:.3f}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the C {name} encoder differs from its plain version")
+    out["encoders"] = enc
+
+    plain = {n: getattr(wires, n) for n in ("encode_depth_wire", "encode_depth_coo", "encode_yuv420",
+                                            "encode_yuv422")}
+    clocks = {}
+    for label, sched, kw in (("f32 dense", "f32", {}), ("mixed dense", "mixed", {}),
+                             ("mixed yuv420+coo", "mixed", dict(rgb_wire="yuv420", depth_wire="coo"))):
+        fresh_peak()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            eng = StreamingEngine(state, height=H, width=W, compute_dtype=getattr(torch, SCHEDULES[sched]), **kw)
+        row = {}
+        for encoders in ("plain", "C", "C", "plain"):
+            with mock.patch.multiple(native, **plain) if encoders == "plain" else contextlib.nullcontext():
+                st = benchmark(eng, n_frames=BENCH_FRAMES, warmup=10, frame_factory=lambda i: frames[i % len(frames)])
+            row.setdefault(encoders, []).append({k: st[k].p50_ms for k in ("synced", "e2e")})
+        clocks[label] = row
+        log(f"    {label}: p50 ms per two-stream frame, runs plain, C, C, plain: "
+            + "; ".join(f"{enc_} synced {r['synced']:.3f} e2e {r['e2e']:.3f}"
+                        for enc_, rs in (("plain", row["plain"][:1]), ("C", row["C"]), ("plain", row["plain"][1:]))
+                        for r in rs))
+        del eng
+    out["engine_p50"] = clocks
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke" / "native"
+    base.mkdir(parents=True, exist_ok=True)
+    rgb = synthetic_frames(1, seed=3)[0][0]
+    decode = {}
+    for k, name in enumerate(("none", "sub", "up", "average", "paeth")):
+        path = base / f"{name}.png"
+        write_png_cycling_filters(path, rgb, filters=(k,))
+        c = io.load_rgb(str(path), bgr=False)
+        t0 = time.perf_counter()
+        with mock.patch.object(native, "unfilter", png._unfilter):
+            p = png.read(path).rgb()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ok = np.array_equal(c, p.astype(np.float32)) and np.array_equal(c, rgb.astype(np.float32))
+        decode[name] = dict(io_ms=host_ms(lambda: io.load_rgb(str(path)), reps=5), plain_ms=plain_ms)
+        log(f"[{'ok' if ok else 'FAIL'}] C PNG reader, a {H}x{W} RGB file with every row filter {name}: bitwise "
+            f"the plain decode of png.py and the image written; ms: io.load_rgb (C unfilter and conversion) "
+            f"{decode[name]['io_ms']:.2f}, the plain decode {plain_ms:.1f}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the C PNG reader differs from png.py on filter {name}")
+    cycling = base / "cycling.png"
+    write_png_cycling_filters(cycling, rgb)
+    read = lambda _=None: io.load_rgb(str(cycling))
+    read()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_FILES):
+        read()
+    one = DECODE_FILES / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        list(pool.map(read, range(DECODE_THREADS)))
+        t0 = time.perf_counter()
+        list(pool.map(read, range(DECODE_FILES)))
+        many = DECODE_FILES / (time.perf_counter() - t0)
+    out["decode"] = dict(by_filter=decode, files_per_s_1=one, files_per_s_threads=many, threads=DECODE_THREADS)
+    log(f"    C PNG reader, {DECODE_FILES} reads of a {H}x{W} RGB file (rows through all five filters): "
+        f"{one:.1f} files/s on one thread, {many:.1f} on {DECODE_THREADS} ({many / one:.2f}x)")
+    return out
+
+
+def parallel_native_phase(state, frames, throughput_fps):
+    """Phase 9: data-parallel training and serving, and the C host data path."""
+    t0 = time.perf_counter()
+    out = {"training": dp_training(), "engine": dp_engine(state, throughput_fps),
+           "native": native_phase(state, frames)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[ok] phase 9 (parallel and native): {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2010,10 +2338,14 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         from nconv_tpu_torch import kernels
+        from nconv_tpu_torch.data import native
         from nconv_tpu_torch.runtime import StreamingEngine
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 9's world-size-2 group, started by phase 9
+        dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
 
     # -- 1. environment and build
     smi = subprocess.run(
@@ -2024,6 +2356,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     log(f"kernel build+load {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds or 0:.1f} s)")
+    t0 = time.perf_counter()
+    native.lib()  # the host data path (g++), before any timed request encodes with it
+    log(f"host library build+load {time.perf_counter() - t0:.1f} s")
 
     state = random_state()
     frames = synthetic_frames(N_REQUESTS)
@@ -2113,6 +2448,10 @@ def main() -> int:
     export_summary["wall_s"] = time.perf_counter() - t_phase
     log(f"[ok] phase 8 (export and interop): {export_summary['wall_s']:.1f} s")
 
+    # -- 9. data parallelism (training over a mesh of ranks, rack serving)
+    # and the native host data path (C PNG reader, C wire encoders)
+    parallel_summary = parallel_native_phase(state, frames, summary["wires"]["throughput"]["fps"])
+
     # -- report: one entry per kernel form; sums per two-stream frame over
     # the mixed main path for the serving kernels, per step-1 train step for
     # K2's K x K form and K5, per guided train step for the guided backward
@@ -2123,6 +2462,7 @@ def main() -> int:
     (out_dir / "chip_smoke_calls.json").write_text(json.dumps(
         {"card": smi, "engines": summary, "training": train_summary, "guided_training": guided_summary,
          "guided_training_bf16": bf16_summary, "cli": cli_summary, "export": export_summary,
+         "parallel_native": parallel_summary,
          "calls": [{"key": repr(k), **v}
                    for k, v in {**results, **wire_results, **train_results, **guided_results,
                                 **bf16_results}.items()]},

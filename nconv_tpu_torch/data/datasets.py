@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import io, sparsify
+from . import io, native, sparsify
 
 # NYU fixed intrinsics (nyuloader.py:29 / :138)
 NYU_K = np.array(
@@ -39,11 +39,12 @@ NYU_TEST_K = np.array(
 
 
 def crop_top_center(arrs, k, height, width):
-    """Top-aligned row crop, centered col crop, shift principal point."""
+    """Top-aligned row crop, centered col crop, shift principal point; the
+    crops are fresh float32 arrays (:func:`.native.crop_top_center`)."""
     h_in, w_in = arrs[0].shape[:2]
     tp = h_in - height
     lp = (w_in - width) // 2
-    out = [a[tp : tp + height, lp : lp + width] for a in arrs]
+    out = [native.crop_top_center(a, height, width) for a in arrs]
     k = k.copy()
     k[0, 2] -= lp
     k[1, 2] -= tp

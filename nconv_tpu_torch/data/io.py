@@ -1,5 +1,6 @@
 """File IO of the depth-completion datasets (the JAX package's
-``data/io.py``, with :mod:`.png` in place of PIL).
+``data/io.py``, with :mod:`.png` and the C readers of :mod:`.native` in
+place of PIL).
 
   * 16-bit PNG depth with /256 scaling (KITTI, VOID);
   * RGB as float32 in BGR order, 0..255: the reference network was trained
@@ -14,20 +15,17 @@ import os
 
 import numpy as np
 
-from . import png
+from . import native, png
 
 
 def load_rgb(path: str, *, bgr: bool = True) -> np.ndarray:
     """(H, W, 3) float32, 0..255. BGR by default (reference parity)."""
-    arr = png.read(path).rgb().astype(np.float32)
-    if bgr:
-        arr = arr[:, :, ::-1]
-    return np.ascontiguousarray(arr)
+    return native.load_rgb(path, bgr=bgr)
 
 
 def load_depth_png16(path: str) -> np.ndarray:
-    """(H, W) float32 depth from a 16-bit PNG, /256 scaling."""
-    return png.read(path).array().astype(np.float32) / 256.0
+    """(H, W) float32 depth from a greyscale PNG, /256 scaling."""
+    return native.load_depth_png16(path, 256.0)
 
 
 def save_depth_png16(path: str, depth: np.ndarray) -> None:
@@ -37,8 +35,7 @@ def save_depth_png16(path: str, depth: np.ndarray) -> None:
 
 def load_validity_map_png16(path: str) -> np.ndarray:
     """VOID validity maps: 16-bit PNG, values {0, 256} -> {0, 1}."""
-    arr = png.read(path).array().astype(np.float32)
-    return (arr > 0).astype(np.float32)
+    return (native.load_depth_png16(path) > 0).astype(np.float32)
 
 
 def load_npy_depth(path: str, shape: tuple[int, int] | None = None) -> np.ndarray:

@@ -4,12 +4,15 @@ PIL).
 
 Decode takes non-interlaced greyscale (colour type 0), RGB (2), palette
 (3, 8-bit), grey + alpha (4) and RGBA (6) at 8 or 16 bits a sample, with
-all five row filters; None, Sub and Up are vectorised over a row, Average
-and Paeth loop over its bytes. Anything else (Adam7 interlacing, 1/2/4-bit
-samples, a broken chunk) raises. :meth:`PNG.array` and :meth:`PNG.rgb` give
-what ``np.asarray(Image.open(path))`` and ``Image.open(path).convert("RGB")``
-give with PIL. Encode writes 8-bit RGB and 8- or 16-bit greyscale, every
-row with filter 0.
+all five row filters, which :func:`.native.unfilter` undoes in C
+(:func:`_unfilter` is its plain version: None, Sub and Up vectorised over
+a row, Average and Paeth a loop over its bytes). Anything else (Adam7
+interlacing, 1/2/4-bit samples, a broken chunk) raises. :meth:`PNG.array`
+and :meth:`PNG.rgb` give what ``np.asarray(Image.open(path))`` and
+``Image.open(path).convert("RGB")`` give with PIL; they are the plain
+versions of :mod:`.native`'s sample conversions, which :mod:`.io` reads
+with. Encode writes 8-bit RGB and 8- or 16-bit greyscale, every row with
+filter 0.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import native
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _NAMES = {0: "greyscale", 2: "RGB", 3: "palette", 4: "grey+alpha", 6: "RGBA"}
 
 
@@ -124,7 +129,10 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
-def decode(data: bytes) -> PNG:
+def parse(data: bytes):
+    """``(width, height, bit depth, colour type, palette, rows)`` of a PNG
+    file's bytes: ``rows`` the unfiltered (height, width * bytes a pixel)
+    uint8 image data, 16-bit samples big-endian as stored."""
     header, palette, idat = None, None, []
     for tag, body in _chunks(data):
         if tag == b"IHDR":
@@ -138,20 +146,23 @@ def decode(data: bytes) -> PNG:
     width, height, depth, ctype, compression, filter_method, interlace = header
     if interlace:
         raise ValueError("interlaced (Adam7) PNG: only non-interlaced files are read")
-    if ctype not in _CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
+    if ctype not in CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
         raise ValueError(f"PNG colour type {ctype} ({_NAMES.get(ctype, 'unknown')}) at bit depth "
                          f"{depth}: only 8/16-bit grey, RGB, grey+alpha, RGBA and 8-bit palette are read")
     if compression or filter_method:
         raise ValueError(f"PNG compression method {compression} / filter method {filter_method}")
     if ctype == 3 and palette is None:
         raise ValueError("palette PNG without PLTE")
-    channels = _CHANNELS[ctype]
+    channels = CHANNELS[ctype]
     bpp = channels * depth // 8
     stride = width * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (stride + 1):
-        raise ValueError(f"PNG image data holds {raw.size} bytes, {height * (stride + 1)} expected")
-    rows = _unfilter(raw, height, stride, bpp)
+    return width, height, depth, ctype, palette, native.unfilter(raw, height, stride, bpp)
+
+
+def decode(data: bytes) -> PNG:
+    width, height, depth, ctype, palette, rows = parse(data)
+    channels = CHANNELS[ctype]
     samples = rows.view(">u2").astype(np.uint16) if depth == 16 else rows
     shape = (height, width) if channels == 1 else (height, width, channels)
     return PNG(samples.reshape(shape), ctype, depth, palette)

@@ -1,5 +1,6 @@
 """Sparse-input synthesis and depth preprocessing on the host (the JAX
-package's ``data/sparsify.py``, numpy and ``scipy.ndimage`` only):
+package's ``data/sparsify.py``, numpy and ``scipy.ndimage``, the mask's
+multiply in :mod:`.native`):
 
   * mask-pool sparsification, off-size masks resized by nearest neighbour
     with PIL's index rule;
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 from scipy.ndimage import convolve, grey_dilation
+
+from . import native
 
 # cv2 MORPH_ELLIPSE (3,3): a 3x3 cross.
 _CROSS = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], bool)
@@ -46,13 +49,14 @@ def resize_mask_nearest(mask: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
 def apply_mask_pool(
     depth: np.ndarray, masks: list[np.ndarray] | np.ndarray, rng: np.random.Generator
 ) -> np.ndarray:
-    """Multiply by a random mask from the pool (resized if needed)."""
+    """Multiply float32 ``depth`` by a random mask from the pool (resized if
+    needed), into a fresh array (:func:`.native.apply_mask`)."""
     if isinstance(masks, list):
         mask = masks[rng.integers(len(masks))]
     else:
         mask = masks
     mask = resize_mask_nearest(mask, depth.shape[-2:])
-    return depth * mask.astype(depth.dtype)
+    return native.apply_mask(depth, mask)
 
 
 def drop_random_points(

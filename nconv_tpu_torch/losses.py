@@ -9,13 +9,21 @@
     resolution (align_corners=False) and averages; ``batch_reduce='first'``
     keeps batch element 0 only (the reference's behaviour), ``'mean'`` the
     whole batch.
+
+Under a data-parallel mesh of world size > 1
+(:func:`.parallel.mesh.data_parallel`) each loss is the global batch's:
+the squared-error and |Sobel| sums go through one differentiable
+all-reduce, since ``sqrt(mse)`` does not split into per-rank pieces.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .ops.resize import resize_bilinear
 from .ops.sobel import sobel_xy
+from .parallel.mesh import active_rank, active_world, all_sum
 
 
 def _masked(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -35,11 +43,28 @@ def gradient_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 def depth_loss(pred: torch.Tensor, gt: torch.Tensor, *, use_gradient_loss: bool = True) -> torch.Tensor:
     """The reference's ``calculate_loss``."""
+    if active_world() > 1:
+        return _global_depth_loss(pred, gt, use_gradient_loss, pred.shape[0] * active_world())
     masked = _masked(pred, gt)
     mse = ((masked - gt) ** 2).mean()
     if not use_gradient_loss:
         return mse
     return 0.8 * torch.sqrt(mse) + 0.2 * gradient_loss(masked, gt)
+
+
+def _global_depth_loss(pred, gt, use_gradient_loss, rows):
+    """:func:`depth_loss` over the ranks of the active mesh, ``rows`` batch
+    rows in all: each rank's sums, all-reduced, over the global counts."""
+    masked = _masked(pred, gt)
+    per_row = math.prod(masked.shape[1:])
+    sums = [((masked - gt) ** 2).sum()]
+    if use_gradient_loss:
+        gx, gy = sobel_xy(gt - masked)
+        sums += [gx.abs().sum(), gy.abs().sum()]
+    sums = all_sum(torch.stack(sums)) / (rows * per_row)  # sobel_xy keeps the size
+    if not use_gradient_loss:
+        return sums[0]
+    return 0.8 * torch.sqrt(sums[0]) + 0.2 * (sums[1] + sums[2])
 
 
 def multi_resolution_loss(
@@ -55,9 +80,12 @@ def multi_resolution_loss(
     total = 0.0
     for pred in scales:
         up = resize_bilinear(pred.permute(0, 3, 1, 2), (h, w), align_corners=False).permute(0, 2, 3, 1)
-        if batch_reduce == "first":
-            up, g = up[0:1], gt[0:1]
+        if batch_reduce == "first" and active_world() > 1:  # global element 0 lives on rank 0
+            keep = int(active_rank() == 0)
+            loss = _global_depth_loss(up[:keep], gt[:keep], use_gradient_loss, 1)
+        elif batch_reduce == "first":
+            loss = depth_loss(up[0:1], gt[0:1], use_gradient_loss=use_gradient_loss)
         else:
-            g = gt
-        total = total + depth_loss(up, g, use_gradient_loss=use_gradient_loss)
+            loss = depth_loss(up, gt, use_gradient_loss=use_gradient_loss)
+        total = total + loss
     return total / len(scales)

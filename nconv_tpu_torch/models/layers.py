@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import active_world, all_sum
 from ..ops.conv_autograd import (
     conv3x3_residual_trainable,
     conv3x3_trainable,
@@ -115,7 +116,10 @@ class _ChannelBN(nn.Module):
     (B, H, W), accumulated in at least f32, and moves the running
     statistics to ``0.9 * running + 0.1 * batch``. (The
     running variance is the biased one, as flax keeps it; ``F.batch_norm``
-    would store the unbiased.)"""
+    would store the unbiased.) Under a data-parallel mesh of world size > 1
+    (:func:`..parallel.mesh.data_parallel`) the batch is the global one:
+    the sums of x and x^2, in f64, go through a differentiable all-reduce,
+    as JAX's SPMD forms the statistics over the sharded batch."""
 
     def __init__(self, channels: int, eps: float = 1e-5, *, device):
         super().__init__()
@@ -129,8 +133,17 @@ class _ChannelBN(nn.Module):
         dt, shape = x.dtype, (1, -1, 1, 1)
         if self.training:
             acc = torch.promote_types(dt, torch.float32)
-            mean = x.mean((0, 2, 3), dtype=acc)
-            var = (x * x).mean((0, 2, 3), dtype=acc) - mean * mean
+            world = active_world()
+            if world == 1:
+                mean = x.mean((0, 2, 3), dtype=acc)
+                var = (x * x).mean((0, 2, 3), dtype=acc) - mean * mean
+            else:  # every rank holds an equal shard of the batch
+                # sums and moments in f64: E[x^2] - E[x]^2 cancels, and the
+                # ranks' partial sums must add no rounding of their own to it
+                wide = torch.float64
+                sums = all_sum(torch.stack([x.sum((0, 2, 3), dtype=wide), (x * x).sum((0, 2, 3), dtype=wide)]))
+                moments = sums / (x.numel() // x.shape[1] * world)
+                mean, var = moments[0].to(acc), (moments[1] - moments[0] * moments[0]).to(acc)
             with torch.no_grad():
                 self.running_mean.copy_(_BN_MOMENTUM * self.running_mean + (1 - _BN_MOMENTUM) * mean)
                 self.running_var.copy_(_BN_MOMENTUM * self.running_var + (1 - _BN_MOMENTUM) * var)

@@ -1,7 +1,8 @@
 """Streaming inference engine: two camera streams at batch 1.
 
   host frames (HWC uint8 or float RGB, HW float sparse depth)
-    -> wire encode on the host (:mod:`.wires`) straight into a staging slot
+    -> wire encode on the host (the C encoders of :mod:`..data.native`;
+       :mod:`.wires` holds their plain versions) straight into a staging slot
        (pinned on the card): RGB dense uint8 / float32, or YUV 4:2:0 / 4:2:2
        planes; depth dense uint16 fixed point clip(d * 256, 0, 65535)
        truncated (the KITTI PNG encoding), dense float32, or COO (flat
@@ -36,8 +37,8 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..data import native
 from ..models import GuidedDepthNet, maybe_fold, resolve_device
-from . import wires
 
 # wire dtypes as the device holds them: uint16 as int16 (decoded & 0xFFFF)
 _TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.int16,
@@ -250,7 +251,7 @@ class StreamingEngine:
         return sum(int(np.prod(shape)) * dt.itemsize for _, shape, dt in self._layout.fields.values())
 
     def _encode_coo(self, depth, out) -> None:
-        _, _, n = wires.encode_depth_coo(depth, self.coo_capacity, self.DEPTH_SCALE, out=out)
+        _, _, n = native.encode_depth_coo(depth, self.coo_capacity, self.DEPTH_SCALE, out=out)
         if n > self.coo_capacity:
             with self._lock:
                 self.coo_dropped_points += n - self.coo_capacity
@@ -289,15 +290,15 @@ class StreamingEngine:
                 if self.rgb_wire == "dense":
                     arrays[(s, "rgb")][...] = a
                 else:
-                    enc = wires.encode_yuv420 if self.rgb_wire == "yuv420" else wires.encode_yuv422
+                    enc = native.encode_yuv420 if self.rgb_wire == "yuv420" else native.encode_yuv422
                     enc(a[0], out=tuple(arrays[(s, n)][0] for n in self._rgb_names))
             if isinstance(depth, tuple):  # pre-encoded (idx, val)
                 arrays[(s, "idx")][...], arrays[(s, "val")][...] = depth
             elif self.depth_wire == "coo":
                 self._encode_coo(self._frame_array(depth, 1, "depth"), (arrays[(s, "idx")], arrays[(s, "val")]))
             elif self.depth_wire_dtype == np.uint16 and np.asarray(depth).dtype != np.uint16:
-                wires.encode_depth_wire(self._frame_array(depth, 1, "depth"), self.DEPTH_SCALE,
-                                        out=arrays[(s, "depth")])
+                native.encode_depth_wire(self._frame_array(depth, 1, "depth"), self.DEPTH_SCALE,
+                                         out=arrays[(s, "depth")])
             else:
                 arrays[(s, "depth")][...] = self._frame_array(depth, 1, "depth")
 

@@ -1,11 +1,11 @@
-"""Host-side wire encoders of the streaming engine, in numpy.
+"""The plain numpy versions of the streaming engine's wire encoders, which
+runs the C ones of :mod:`..data.native`; tests hold those to these.
 
 Each is bitwise the numpy form of ``nconv_tpu/data/native.py``'s encoder
 of the same name (the port keeps its own copy: it imports nothing of the
-JAX package). The depth encoders are bitwise the C encoders of ``native/``
-too; the C YUV encoders round in integers and may differ by one step. Each
-takes an ``out=`` buffer, so that the engine encodes straight into a pinned
-staging slot.
+JAX package). The depth encoders are bitwise the C encoders too; the C YUV
+encoders round in integers and may differ by one step. Each takes an
+``out=`` buffer, as the C ones do.
 
   * dense depth: ``uint16 = clip(d * scale, 0, 65535)`` truncated, the
     KITTI 16-bit PNG encoding;

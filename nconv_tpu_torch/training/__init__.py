@@ -1,6 +1,7 @@
 """Training of the port: step 1 (``UnguidedTask``) and step 2 (``GuidedTask``)
-on one device, the learning-rate x weight-decay grid (one cell after another,
-or in lockstep), best-model files."""
+on one device or data-parallel over a mesh of ranks (``Trainer(mesh=...)``),
+the learning-rate x weight-decay grid (one cell after another, or in
+lockstep over one or more devices), best-model files."""
 from .checkpoint import CheckpointManager, load_best, save_best
 from .config import GridSearchConfig, OptimizerConfig, SchedulerConfig, TrainConfig
 from .evaluate import evaluate, make_guided_predict, make_unguided_predict

@@ -1,6 +1,7 @@
 """Training harness of the port: the step-1 and step-2 tasks, the train
 and eval steps, and the host-side loop (the JAX package's
-``training/trainer.py``, single device).
+``training/trainer.py``), on one device or data-parallel over a
+:class:`~nconv_tpu_torch.parallel.Mesh` of ranks.
 
 One train step is ``model.train()``, forward, ``loss.backward()`` and the
 optimizer's step on the parameters that require grad, in place; evaluation
@@ -10,6 +11,13 @@ form and K5 (``ops/nconv.py``); step 2's forward runs K1 (frozen step 1),
 K2 and K3, and its backward K2's K x K forms, K3's 3x3/s2 form and K6
 (``ops/conv_autograd.py``). :func:`grid_search` sweeps the learning rate
 and weight decay one cell after another.
+
+With a mesh of world size > 1 (``torchrun``, one process per GPU,
+``make_mesh()``), every rank reads the same global batch from its loader
+and keeps its shard; the loss and train-mode BatchNorm sum over the ranks
+(``parallel/mesh.py``), the gradients are averaged over them, so a step is
+the single-process step on the whole batch, and the losses reported are
+the global ones. Rank 0 alone writes checkpoints, images and logs.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from ..data.pipeline import prefetch_to_device
 from ..losses import depth_loss, multi_resolution_loss
 from ..models import GuidedDepthNet, NConvUNet
 from ..models.backend import resolve_device
+from ..parallel.mesh import average_gradients, data_parallel, replicate, shard_batch
 from ..utils.colormap import save_depth
 from .checkpoint import CheckpointManager
 from .config import GridSearchConfig, OptimizerConfig, TrainConfig
@@ -106,7 +115,12 @@ class Trainer:
     ``device`` (default ``cuda``; raises without a GPU). The optimizer takes
     the parameters that require grad, so a frozen step 1 keeps its values
     bit for bit; checkpoints hold the model's whole state dict, BN running
-    statistics included."""
+    statistics included.
+
+    ``mesh`` (``parallel.make_mesh()``) trains data-parallel on the mesh's
+    device, which takes the place of ``device``; the model's parameters and
+    buffers start as rank 0's. Without a mesh, or at world size 1, this is
+    the single-device trainer, bit for bit."""
 
     def __init__(
         self,
@@ -115,14 +129,26 @@ class Trainer:
         checkpoints: CheckpointManager | None = None,
         log_fn: Callable[[str], None] = print,
         device: str | torch.device | None = "cuda",
+        mesh=None,
     ):
         self.task = task
         self.cfg = cfg
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0
         self.checkpoints = checkpoints
-        self.log = log_fn
-        self.device = resolve_device(device)
+        self.log = log_fn if self.lead else (lambda msg: None)
+        if mesh is not None and len(mesh.devices) != 1:
+            raise ValueError(f"a training mesh holds one device a rank, not {len(mesh.devices)}")
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.model = task.model.to(self.device)
+        if mesh is not None:
+            replicate(self.model, mesh)
         self.optimizer = build_optimizer(cfg.optimizer, self.model.parameters())
+
+    def _shards(self, loader: Callable[[], Iterable[dict]]):
+        """The loader's batches as this rank's shards on the device."""
+        batches = loader() if self.mesh is None else (shard_batch(b, self.mesh) for b in loader())
+        return prefetch_to_device(batches, self.device)
 
     # -- steps -------------------------------------------------------------
 
@@ -131,15 +157,19 @@ class Trainer:
         loss before the step (a 0-d tensor, not synchronised)."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.task.loss(batch, cfg=self.cfg)
-        loss.backward()
+        with data_parallel(self.mesh):
+            loss = self.task.loss(batch, cfg=self.cfg)
+            loss.backward()
+        if self.mesh is not None:
+            average_gradients(self.model.parameters(), self.mesh)
         self.optimizer.step()
         return loss.detach()
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:
         self.model.eval()
-        return self.task.loss(batch, cfg=self.cfg)
+        with data_parallel(self.mesh):
+            return self.task.loss(batch, cfg=self.cfg)
 
     # -- the loop ----------------------------------------------------------
 
@@ -163,7 +193,7 @@ class Trainer:
             latest = self.checkpoints.latest_epoch()
             if latest is not None:
                 state, meta = self.checkpoints.restore(latest)
-                self.model.load_state_dict(state["model"])
+                self.model.load_state_dict(state["model"])  # every rank reads rank 0's files
                 self.optimizer.load_state_dict(state["optimizer"])
                 history = meta["history"]
                 best_val = float(meta["best_val"])
@@ -178,19 +208,18 @@ class Trainer:
         for epoch in range(start_epoch, cfg.epochs):
             losses = []
             t_step = time.time()
-            for i, batch in enumerate(prefetch_to_device(train_loader(), self.device)):
+            for i, batch in enumerate(self._shards(train_loader)):
                 loss = self.train_step(batch)
                 losses.append(loss)
                 if cfg.log_every and i % cfg.log_every == 0 and i > 0:
                     self.log(f"[epoch {epoch}] batch {i} loss {float(loss):.4f} "
                              f"({time.time() - t_step:.2f}s)")
                     t_step = time.time()
-                if cfg.dump_images_every and i % cfg.dump_images_every == 0:
+                if cfg.dump_images_every and i % cfg.dump_images_every == 0 and self.lead:
                     self._dump_images(batch, epoch, i)
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
 
-            val_losses = [float(self.eval_step(b))
-                          for b in prefetch_to_device(val_loader(), self.device)]
+            val_losses = [float(self.eval_step(b)) for b in self._shards(val_loader)]
             val_loss = float(np.mean(val_losses)) if val_losses else float("nan")
 
             if cfg.nan_policy == "raise" and not (np.isfinite(train_loss) and np.isfinite(val_loss)):
@@ -205,7 +234,7 @@ class Trainer:
             if val_loss < best_val:
                 best_val = val_loss
                 best_vars = _host_copy(self.model)
-                if self.checkpoints is not None:
+                if self.checkpoints is not None and self.lead:
                     self.checkpoints.save_best_variables(best_vars)
                 num_bad = 0
             else:
@@ -219,12 +248,15 @@ class Trainer:
             if self.checkpoints is not None and (
                 (epoch + 1) % cfg.checkpoint_every == 0 or epoch == cfg.epochs - 1
             ):
-                self.checkpoints.save(
-                    epoch,
-                    {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()},
-                    meta={"history": history, "best_val": best_val,
-                          "sched": sched.state_dict(), "num_bad": num_bad},
-                )
+                if self.lead:
+                    self.checkpoints.save(
+                        epoch,
+                        {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()},
+                        meta={"history": history, "best_val": best_val,
+                              "sched": sched.state_dict(), "num_bad": num_bad},
+                    )
+                if self.mesh is not None:
+                    self.mesh.barrier()  # the files exist before any rank may resume from them
 
             if cfg.early_stopping and num_bad >= cfg.scheduler.patience + cfg.early_stop_extra:
                 self.log(f"[early stop] epoch {epoch}")
@@ -266,10 +298,12 @@ def grid_search(
     log_fn: Callable[[str], None] = print,
     checkpoint_dir: str | None = None,
     device: str | torch.device | None = "cuda",
+    mesh=None,
 ):
     """Learning-rate x weight-decay sweep, one cell after another; returns
     ``(best FitResult, best lr, best wd)``. ``task_factory()`` gives each
-    cell its task, model freshly initialised.
+    cell its task, model freshly initialised. ``mesh`` trains every cell
+    data-parallel (:class:`Trainer`); rank 0 alone writes the results file.
 
     With ``checkpoint_dir`` the sweep resumes: each cell trains under its
     own per-epoch :class:`CheckpointManager` (``<dir>/<cell>``), finished
@@ -282,6 +316,8 @@ def grid_search(
     batches than the first, as in the JAX package; the lockstep
     ``parallel_grid_search`` gives every cell the same batches.
     """
+    if mesh is not None and mesh.rank != 0:
+        log_fn = lambda msg: None  # noqa: E731
     results_path = os.path.join(checkpoint_dir, "grid_results.json") if checkpoint_dir else None
     done: dict[str, dict] = {}
     if results_path and os.path.isfile(results_path):
@@ -303,9 +339,9 @@ def grid_search(
                 ckpts = (CheckpointManager(os.path.join(checkpoint_dir, cell), keep=cfg.keep_checkpoints)
                          if checkpoint_dir else None)
                 trainer = Trainer(task_factory(), cell_config(cfg, lr, wd), checkpoints=ckpts,
-                                  log_fn=log_fn, device=device)
+                                  log_fn=log_fn, device=device, mesh=mesh)
                 result = trainer.fit(train_loader, val_loader, resume=checkpoint_dir is not None)
-                if results_path:
+                if results_path and trainer.lead:
                     done[cell] = {"lr": lr, "wd": wd, "best_val_loss": result.best_val_loss,
                                   "history": result.history}
                     with open(results_path, "w") as f:
