@@ -35,7 +35,11 @@ Phases (any failure raises and the script exits non-zero):
      crossing can be told from an error; (d) ``benchmark``'s ``device`` /
      ``synced`` / ``e2e`` p50 / p90 beside the eager request's ``e2e``,
      the busy share and kernel names of graphed requests from
-     ``runtime/profile.py``, the engine's peak memory;
+     ``runtime/profile.py``, the engine's peak memory; (e) each of the
+     mixed frame's ``conv_tc`` / ``conv_transpose_tc`` / ``conv_chain_tc``
+     calls, slowest first: its single-launch ms, its device ms (its
+     launches replayed from a CUDA graph, no host time between them),
+     bound and share, their sums a frame and the frame's three p50s;
  3b. the wires, mixed: a second build capturing the same launches; the COO
      wire bitwise equal to the dense uint16 wire; yuv422 / yuv420 against
      the dense wire on the JAX tests' natural-content frame (bars 1e-3 /
@@ -243,6 +247,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
 # beside each f32 chain: two cuDNN f32 convs, two launches of K2's f32 forward
 YARDSTICKS = ("two_cudnn_bf16_ms", "two_conv_tc_ms", "two_cudnn_f32_ms", "two_conv_f32_ms")
 TRAIN_KERNELS = ("conv_kxk", "filtergrad")  # reported per step-1 train step; K1 per frame
+# the mixed frame's tensor-core forms, each call broken down after phase 3
+TC_SERVING = ("conv_tc", "conv_transpose_tc", "conv_chain_tc")
 GUIDED_KERNELS = ("conv_transpose3x3s2", "conv4x4s2", "wgrad")  # per f32 guided train step
 # per bf16 guided train step: the tensor-core backward forms, which only the
 # bf16 step runs
@@ -272,6 +278,35 @@ def time_ms(fn, reps=REPS) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def graph_ms(fn, n=20, reps=5) -> float:
+    """Device ms of one call: ``n`` calls captured as one CUDA graph (no host
+    time between the launches), the median of ``reps`` replays between two
+    CUDA events, over ``n``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -678,9 +713,11 @@ def check_call(key, g):
         del r64
     else:
         yardsticks_f64 = {}
+    # the tensor-core serving forms' device time without the host wrapper
+    device = dict(device_ms=graph_ms(kern)) if kind in TC_SERVING else {}
     return dict(
         kind=kind, err=err, abs_err=abs_err, bar=bar, out_dtype=out_dt, in_dtype=in_dt,
-        shape=[list(t.shape) for t in k_out[:1]],
+        shape=[list(t.shape) for t in k_out[:1]], **device,
         ms=time_ms(kern), plain_ms=time_ms(plain),
         library_ms=time_ms(library) if library else None,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
@@ -691,6 +728,31 @@ def check_call(key, g):
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
+
+def tc_breakdown(results, calls, bench):
+    """Each tensor-core call of a mixed frame, slowest first: its launches a
+    frame, single-launch ms (host wrapper included) and device ms (graph
+    replay), bound and share of bound; sums per kernel; the frame's three
+    p50 clocks beside them. Returns the sums."""
+    mine = sorted(((k, r) for k, r in results.items() if k[0] in TC_SERVING and k in calls),
+                  key=lambda kr: -kr[1]["device_ms"] * calls[kr[0]])
+    for key, r in mine:
+        chans = "+".join(str(sig[0][1]) for sig in key[1]) if key[0] != "conv_chain_tc" else str(key[1][0][1])
+        form = (f"s{key[4]}{' res' if key[6] else ''}" if key[0] == "conv_tc" else
+                "4x4/s2" if key[0] == "conv_transpose_tc" else f"mid {key[2][0][0]}")
+        log(f"    {key[0]:<17} x{calls[key]} in {chans} {form} out {r['shape'][0]}: ms {r['ms']:.4f} "
+            f"device {r['device_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"share {r['bound_ms'] / r['device_ms']:.1%} of device, {r['bound_ms'] / r['ms']:.1%} of ms")
+    sums = {}
+    for kname in TC_SERVING:
+        rows = [(k, r) for k, r in mine if k[0] == kname]
+        sums[kname] = {f: sum(r[f] * calls[k] for k, r in rows) for f in ("ms", "device_ms", "bound_ms")}
+    log("per mixed frame: " + "; ".join(
+        f"{k} ms {v['ms']:.4f} device {v['device_ms']:.4f} bound {v['bound_ms']:.4f} "
+        f"share {v['bound_ms'] / v['device_ms']:.1%}" for k, v in sums.items())
+        + "; frame p50 " + ", ".join(f"{k} {v['p50_ms']:.3f} ms" for k, v in bench.items()))
+    return sums
+
 
 def synthetic_frames(n, seed=0):
     """Smooth depth (meters) under a 5% Bernoulli mask and a smooth u8 RGB
@@ -2420,6 +2482,7 @@ def main() -> int:
         del engines
         summary, engine_counts, captured = serve_phase(state, frames, ref, ref64)
         del ref, ref64
+        summary["mixed"]["tensor_core_sums"] = tc_breakdown(results, rec["mixed"], summary["mixed"]["benchmark"])
         summary["wires"], wire_results = wire_phase(state, frames, g, results, captured)
 
     # -- 4. step-1 training

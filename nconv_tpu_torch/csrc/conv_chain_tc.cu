@@ -10,27 +10,43 @@
 // per byte-pair it reads, near the card's bf16 ridge, so both the bytes and
 // the tensor-core issue count; two separate convs would add the intermediate's
 // write and read (2 x 57 MB at full resolution and 32 channels). Per tile of
-// TH x TW output pixels, built from conv_tc.cu's machinery (channels-last
-// staging transposed on the way in from NCHW, ldmatrix, mma.sync m16n8k16
-// bf16 -> f32, per-tap partial sums, weights resident, persistent blocks):
-//  1. the input tile with a 2-pixel halo, channels-last bf16, zero outside
-//     the image;
+// TH x TW = 8 x 16 output pixels, on conv_tc.cu's Hopper mainloop (the input
+// staged channels-last, transposed on the way in from NCHW; wgmma m64nNk16
+// with A from registers by ldmatrix and B from the resident weights through
+// descriptors; per-tap partial sums, each started afresh and joined to the
+// total with one rounded add; persistent blocks):
+//  1. a producer warpgroup stages the input tile with a 2-pixel halo,
+//     channels-last bf16, zero outside the image, into a ring of two stages
+//     (one where the 64-channel weights leave no room), each guarded by a
+//     pair of mbarriers;
 //  2. stage 1 as a GEMM over the intermediate tile with its 1-pixel halo,
-//     (TH + 2) x (TW + 2) pixels taken 16 at a time in row-major order (an
+//     (TH + 2) x (TW + 2) pixels taken 64 at a time in row-major order (an
 //     A row is any pixel, by its lane's ldmatrix address, so the 18-wide
-//     rows waste no MMA rows but the last tile's);
+//     rows waste no GEMM rows but the last tile's), a tap's three m-tiles
+//     issued as one group where registers allow, so a tap waits once, not
+//     three times; after its last read of the input stage the consumer
+//     hands it back;
 //  3. bias, ReLU, one rounding to bf16 and zero outside the image (stage 2's
 //     padding) into shared memory, channels-last;
-//  4. stage 2 as a GEMM from shared memory, one output row of 16 per m-tile;
-//  5. the epilogue as conv_tc's: bias, ReLU, bf16, staged so the NCHW stores
-//     are 16-byte vectors.
-// Both stages' weights stay resident (up to 2 x 9 x 64 x 72 bf16 = 166 KB at
-// 64 channels with the conflict-free row padding), so a block holds one
-// 8 x 16 tile: stage 1 computes 180 intermediate pixels (192 MMA rows) for
-// 128 outputs, a halo recompute of 1.41x (1.5x in MMA rows) on stage 1 and
-// none on stage 2. The next tile's input loads into registers while stage 2
-// runs.
-#include "tc.cuh"
+//  4. stage 2 as a GEMM from shared memory by every output channel;
+//  5. the epilogue as conv_tc's: bias, ReLU, bf16, staged (one stage per
+//     consumer) so the NCHW stores are 16-byte vectors.
+// Two consumer warpgroups, in one of two forms. At cmid and cout 32 and
+// cin <= 64 (the frame's full-resolution chains) each owns every other
+// tile of the block, both stages at full width, with its own input stage,
+// intermediate and output stage: the two consumers' tap latencies overlap
+// and they never wait for each other (at these widths a tap's time is
+// mostly the wgmma's latency; sharing tiles, the frame's two 32-channel
+// chains took 1.19x and 1.16x as long on the H100).
+// Otherwise they share a tile: stage 1 half the intermediate channels each,
+// stage 2 4 output rows each, meeting at a named barrier twice a tile (the
+// intermediate whole; the intermediate read). setmaxnreg leaves the
+// producer 104 registers and gives the consumers 200. Both
+// stages' weights stay resident (2 x 9 x 64 x 64 bf16 = 147 KB at 64
+// channels, K-major without padding): stage 1 computes 180 intermediate
+// pixels (192 GEMM rows) for 128 outputs, a halo recompute of 1.41x (1.5x
+// in GEMM rows) on stage 1 and none on stage 2.
+#include "hopper.cuh"
 
 namespace nct {
 namespace chain_tc {
@@ -40,47 +56,60 @@ constexpr int MH = TH + 2, MW = TW + 2;   // intermediate tile
 constexpr int MP = MH * MW;               // its pixels
 constexpr int IH = TH + 4, IW = TW + 4;   // input tile
 constexpr int G = 4;                      // 8-pixel groups loaded per input row, from ox0 - 8
-constexpr int WM = 4, WN = 2;             // warps along M and N
-constexpr int THREADS = 32 * WM * WN;
-constexpr int MT1 = 3;                    // stage-1 m-tiles per warp: WM x MT1 x 16 = 192 >= MP
-constexpr int MT2 = TH / WM;              // stage-2 m-tiles (output rows) per warp
-constexpr int OS = TH * TW + 8;           // output stage: bf16 per channel, padded
-static_assert(WM * MT1 * 16 >= MP, "stage-1 m-tiles cover the intermediate tile");
+constexpr int THREADS = 384;              // a producer and two consumer warpgroups
+// registers a thread: 168 at launch (one block an SM); setmaxnreg leaves the
+// producer 104 and gives the consumers 200 (stage 1's three m-tiles, stage
+// 2's two partial sums)
+constexpr int LREG = 168, PREG = 104, CREG = 200;
+static_assert(128 * (PREG + 2 * CREG) <= THREADS * LREG, "the consumers' registers come from the producer's");
+constexpr int MT1 = 3;                    // stage-1 m64 tiles: 192 >= MP GEMM rows
+constexpr int OS = 4 * TW + 8;            // a consumer's output stage: 4 rows per column, padded
+constexpr int KMAX2 = 4;                  // k16 steps a stage-2 tap, at most: cmid <= 64
+static_assert(MT1 * 64 >= MP, "stage-1 m-tiles cover the intermediate tile");
 
 struct Args {
   const unsigned short* x;  // (B, cin, H, W) bf16 bits, contiguous
   int B, H, W, cin, cmid, cout;
   int kc1;           // cin rounded up to 16
-  int cmidp, coutp;  // cmid and cout rounded up to the warps' columns (32 or 64): zero weights past them
-  int cps1, cps2;    // shared-memory row, bf16, of an input pixel / w1 column (kc1 + 8), a mid pixel / w2 column
+  int cmidp, coutp;  // cmid and cout rounded up to 32 or 64: zero weights past them
+  int cps1, cps2;    // shared-memory row, bf16, of an input pixel (kc1 + 8), a mid pixel (cmidp + 8)
   const void *w1, *b1, *w2, *b2;  // (cmid, cin, 3, 3), (cmid), (cout, cmid, 3, 3), (cout)
   int w_bf16;                      // their storage type: f32 (0) or bf16 (1)
   unsigned short* out;             // (B, cout, H, W) bf16 bits, contiguous
   int vec;                         // 1: x's rows may be read as aligned 16-byte vectors
   int out_vec;                     // 1: out's rows may be written as 16-byte vectors
   int tiles_x, tiles_y, tiles;
+  int stages;                      // input stages in the ring: 2 where they fit, else 1
 };
 
+// A solo consumer's output stage: the tile's 8 rows per column, padded
+constexpr int OS8 = TH * TW + 8;
+
 struct Smem {  // byte offsets into the dynamic shared memory (cmid, cout: padded)
-  size_t w1, w2, b1, b2, in, mid, total;
-  __host__ __device__ Smem(int cmid, int cout, int cps1, int cps2) {
-    w1 = 0;
-    w2 = w1 + size_t(9) * cmid * cps1 * 2;
-    b1 = w2 + size_t(9) * cout * cps2 * 2;
+  size_t w1, w2, b1, b2, bars, in, in_bytes, mid, mid_bytes, out, out_bytes, total;
+  // solo: each consumer its own intermediate and a whole tile's output stage
+  __host__ __device__ Smem(int kc1, int cmid, int cout, int cps1, int cps2, int stages, bool solo) {
+    w1 = 0;                                    // 9 K-major blocks of cmid columns x kc1
+    w2 = w1 + size_t(9) * cmid * kc1 * 2;      // 9 K-major blocks of cout columns x cmid
+    b1 = w2 + size_t(9) * cout * cmid * 2;
     b2 = b1 + size_t(cmid) * 4;
-    in = b2 + size_t(cout) * 4;
-    mid = in + size_t(IH) * IW * cps1 * 2;  // then the output stage
-    const size_t mid_rows = size_t(WM) * MT1 * 16 * cps2 * 2, stage = size_t(cout) * OS * 2;
-    total = mid + (mid_rows > stage ? mid_rows : stage);
+    bars = b2 + size_t(cout) * 4;              // full[2], empty[2]
+    in = bars + 32;                            // the input stages
+    in_bytes = (size_t(IH) * IW * cps1 * 2 + 15) / 16 * 16;
+    mid = in + stages * in_bytes;
+    mid_bytes = size_t(MT1) * 64 * cps2 * 2;
+    out = mid + (solo ? 2 : 1) * mid_bytes;
+    out_bytes = size_t(cout) * (solo ? OS8 : OS) * 2;
+    total = out + 2 * out_bytes;
   }
 };
 
 // Four channels (c0 .. c0 + 3) x 8 pixels from x of input-tile row yy and
 // 8-pixel group g of the tile at (b, oy0, ox0), as four 16-byte rows; zero
 // outside the image and past cin.
-__device__ __forceinline__ void load_unit(const Args& a, int b, int oy0, int ox0, int q, int rest,
+__device__ __forceinline__ void load_unit(const Args& a, int b, int oy0, int ox0, int q, int g, int yy,
                                           uint4 (&v)[4]) {
-  const int y = oy0 - 2 + rest / G, x = ox0 - 8 + 8 * (rest % G), c0 = 4 * q;
+  const int y = oy0 - 2 + yy, x = ox0 - 8 + 8 * g, c0 = 4 * q;
 #pragma unroll
   for (int k = 0; k < 4; ++k) v[k] = make_uint4(0, 0, 0, 0);
   if (c0 >= a.cin || y < 0 || y >= a.H || x + 8 <= 0 || x >= a.W) return;
@@ -104,8 +133,8 @@ __device__ __forceinline__ void load_unit(const Args& a, int b, int oy0, int ox0
 
 // The unit's pixels that fall in the tile (columns 8 g + j - 6), as
 // channel-quads of the input tile's rows.
-__device__ __forceinline__ void store_unit(const Args& a, unsigned short* in, int q, int rest, const uint4 (&v)[4]) {
-  const int g = rest % G, yy = rest / G;
+__device__ __forceinline__ void store_unit(const Args& a, unsigned short* in, int q, int g, int yy,
+                                           const uint4 (&v)[4]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int xx = 8 * g + j - 6;
@@ -121,255 +150,265 @@ __device__ __forceinline__ void tile_origin(const Args& a, int t, int& b, int& o
   ox0 = (r % a.tiles_x) * TW;
 }
 
-// MT m-tiles (A rows at per-lane addresses am[m]) by NTP pairs of 8-column
-// n-tiles; the fragments of k-chunk k + 1 load while the MMAs of chunk k
-// issue.
-template <int MT, int NTP>
-struct Frags {
-  uint32_t a[MT][4], b[NTP][4];
-  __device__ __forceinline__ void load(const uint32_t (&am)[MT], uint32_t b0, uint32_t bpair, int k) {
+// The producer warpgroup's copy of one input tile: its 128 threads over
+// the units, group fastest (neighbouring threads read neighbouring 16-byte
+// pieces of a channel row), four units' loads in flight a thread.
+__device__ __forceinline__ void stage_tile(const Args& a, unsigned short* in, int b, int oy0, int ox0, int ptid) {
+  constexpr int U = 4;
+  const int nq = a.kc1 / 4, units = IH * G * nq;
+  tc::Walk w(ptid, 128, G * nq);  // q: group + G x quad, rest: tile row
+  for (int base = ptid; base < units; base += 128 * U) {
+    uint4 v[U][4];
+    tc::Walk wu[U];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) ldsm_x4(a[m], am[m] + 32 * k);
+    for (int j = 0; j < U; ++j, w.next()) {
+      wu[j] = w;
+      if (base + 128 * j < units) load_unit(a, b, oy0, ox0, w.q / G, w.q % G, w.rest, v[j]);
+    }
 #pragma unroll
-    for (int p = 0; p < NTP; ++p) ldsm_x4(b[p], b0 + p * bpair + 32 * k);
+    for (int j = 0; j < U; ++j)
+      if (base + 128 * j < units) store_unit(a, in, wu[j].q / G, wu[j].q % G, wu[j].rest, v[j]);
   }
-  __device__ __forceinline__ void mma(float (&acc)[MT][2 * NTP][4]) const {
-#pragma unroll
-    for (int p = 0; p < NTP; ++p)
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        mma_bf16(acc[m][2 * p], a[m], b[p][0], b[p][1]);
-        mma_bf16(acc[m][2 * p + 1], a[m], b[p][2], b[p][3]);
-      }
-  }
-};
-
-// acc += one tap's product over all of K, summed apart and joined with one
-// rounded add (the tensor cores' f32 sums truncate: conv_tc.cu, mma_tap).
-template <int MT, int NTP>
-__device__ __forceinline__ void mma_tap(float (&acc)[MT][2 * NTP][4], const uint32_t (&am)[MT], uint32_t tap,
-                                        uint32_t b0, uint32_t bpair, int kchunks) {
-  uint32_t at[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) at[m] = am[m] + tap;
-  float part[MT][2 * NTP][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < 2 * NTP; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
-  Frags<MT, NTP> f0, f1;
-  f0.load(at, b0, bpair, 0);
-  int k = 0;
-  for (; k + 2 <= kchunks; k += 2) {
-    f1.load(at, b0, bpair, k + 1);
-    f0.mma(part);
-    if (k + 2 < kchunks) f0.load(at, b0, bpair, k + 2);
-    f1.mma(part);
-  }
-  if (k < kchunks) f0.mma(part);
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < 2 * NTP; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
 }
 
-// NTP1 = cmidp / 32, NTP2 = coutp / 32: each of the WN warps along N takes
-// half of a stage's columns. One block a SM: the 64-channel weights fill its
-// shared memory, and capping the 32-channel forms at 128 registers for two
-// blocks spilled and ran slower on the H100.
-template <int NTP1, int NTP2>
+// SOLO: each consumer warpgroup a tile of its own (cmid, cout 32, cin <= 64:
+// two stages, one a consumer; the block's tiles alternate between them),
+// both stages at full width, its own intermediate and output stage, so the
+// two consumers' tap latencies overlap instead of meeting at barriers. Else
+// both consumers share a tile: N1 = cmidp / 2 (a consumer's stage-1
+// columns), N2 = coutp (stage 2, 4 output rows each). KB: the k16 steps of
+// a stage-1 tap held at most, 4 (cin <= 64) or 8 (cin <= 128). Within a
+// consumer's 200 registers (ptxas spilled and serialized the wgmmas of the
+// forms past them): the stage-1 m-tiles of a tap as one group in the solo
+// form and at N1 16 and KB 4, else one m-tile at a time, two taps in flight
+// unless N1 is 32 at KB 8; the shared stage 2 two taps in flight at N2 32,
+// one at 64; the solo stage 2 its two m-tiles as one group. One block an
+// SM: the 64-channel weights fill its shared memory.
+template <int N1, int N2, int KB, bool SOLO>
 __global__ void __launch_bounds__(THREADS, 1) chain_tc_kernel(const Args a) {
-  constexpr int MAXU = 3;  // input units (4 channels x 8 pixels) prefetched per thread
   NCT_DYN_SHARED(unsigned char, smem);
-  const Smem sm(a.cmidp, a.coutp, a.cps1, a.cps2);
+  const Smem sm(a.kc1, a.cmidp, a.coutp, a.cps1, a.cps2, a.stages, SOLO);
   unsigned short* w1s = reinterpret_cast<unsigned short*>(smem + sm.w1);
   unsigned short* w2s = reinterpret_cast<unsigned short*>(smem + sm.w2);
   float* b1s = reinterpret_cast<float*>(smem + sm.b1);
   float* b2s = reinterpret_cast<float*>(smem + sm.b2);
-  unsigned short* in = reinterpret_cast<unsigned short*>(smem + sm.in);
-  unsigned short* mid = reinterpret_cast<unsigned short*>(smem + sm.mid);
+  const uint32_t bars = smem_u32(smem + sm.bars);
+  const hop::Ring ring{bars, bars + 16, a.stages};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WM, wn = warp / WM;
 
-  // -- weights (rounded to bf16) and biases, once per block: zero, then
-  // scatter each stored row of 9 taps into its slots [tap][column][k]
-  for (int i = tid; i < static_cast<int>(sm.in / 16); i += THREADS)
+  // -- weights (rounded to bf16, K-major) and biases, once per block: zero,
+  // then scatter each stored row of 9 taps into its blocks
+  for (int i = tid; i < static_cast<int>(sm.b1 / 16); i += THREADS)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    ring.init(128, SOLO ? 128 : 256);
+    hop::mbar_init_fence();
+  }
   __syncthreads();
   for (int i = tid; i < a.cmidp; i += THREADS) b1s[i] = i < a.cmid ? load_w(a.b1, a.w_bf16, i) : 0.f;
   for (int i = tid; i < a.coutp; i += THREADS) b2s[i] = i < a.cout ? load_w(a.b2, a.w_bf16, i) : 0.f;
-  auto put = [&](unsigned short* ws, int cps, int ncol, int slot, int co, int k, const void* src, long long i) {
-    ws[(slot * ncol + co) * cps + k] = __bfloat16_as_ushort(__float2bfloat16(load_w(src, a.w_bf16, i)));
+  auto put = [&](unsigned short* ws, int kc, int np, int tap, int co, int k, const void* src, long long i) {
+    ws[tap * np * kc + hop::kmajor(co, k, np)] = __bfloat16_as_ushort(__float2bfloat16(load_w(src, a.w_bf16, i)));
   };
   {
     tc::Walk w(tid, THREADS, a.cin);  // q: input channel, rest: output channel
     for (int rr = tid; rr < a.cmid * a.cin; rr += THREADS, w.next())
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) put(w1s, a.cps1, a.cmidp, tap, w.rest, w.q, a.w1, 9LL * rr + tap);
+      for (int tap = 0; tap < 9; ++tap) put(w1s, a.kc1, a.cmidp, tap, w.rest, w.q, a.w1, 9LL * rr + tap);
   }
   {
     tc::Walk w(tid, THREADS, a.cmid);
     for (int rr = tid; rr < a.cout * a.cmid; rr += THREADS, w.next())
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) put(w2s, a.cps2, a.coutp, tap, w.rest, w.q, a.w2, 9LL * rr + tap);
+      for (int tap = 0; tap < 9; ++tap) put(w2s, a.cmidp, a.coutp, tap, w.rest, w.q, a.w2, 9LL * rr + tap);
   }
-
-  // -- per-lane ldmatrix addresses. A: row q = lane % 16 of an m-tile, at
-  // channel 8 (lane / 16); B: column (lane / 16) * 8 + lane % 8 of the
-  // warp's first column pair, at channel 8 ((lane / 8) % 2)
-  const int q = lane & 15;
-  const uint32_t rowb1 = a.cps1 * 2, rowb2 = a.cps2 * 2;
-  uint32_t am1[MT1], am2[MT2];
-#pragma unroll
-  for (int m = 0; m < MT1; ++m) {
-    int p = (wm * MT1 + m) * 16 + q;
-    p = p < MP ? p : MP - 1;  // rows past the intermediate tile read its last pixel; never stored
-    am1[m] = smem_u32(in) + ((p / MW) * IW + p % MW) * rowb1 + (lane >> 4) * 16;
-  }
-#pragma unroll
-  for (int m = 0; m < MT2; ++m) am2[m] = smem_u32(mid) + ((wm * MT2 + m) * MW + q) * rowb2 + (lane >> 4) * 16;
-  const int c1 = wn * 16 * NTP1, c2 = wn * 16 * NTP2;  // the warp's first column of each stage
-  const int bcol = (lane >> 4) * 8 + (lane & 7);
-  const uint32_t bk = ((lane >> 3) & 1) * 16;
-  const uint32_t bl1 = smem_u32(w1s) + (c1 + bcol) * rowb1 + bk, bl2 = smem_u32(w2s) + (c2 + bcol) * rowb2 + bk;
-  const uint32_t slot1 = a.cmidp * rowb1, slot2 = a.coutp * rowb2;
-  const int k1 = a.kc1 / 16, k2 = a.cmidp / 16;
-  const int nq = a.kc1 / 4, units = IH * G * nq;
-  const int gid = lane >> 2, cq = (lane & 3) * 2;
-
-  int t = blockIdx.x;
-  if (t >= a.tiles) return;
-  {
-    int b, oy0, ox0;
-    tile_origin(a, t, b, oy0, ox0);
-    tc::Walk w(tid, THREADS, nq);
-    for (int ui = tid; ui < units; ui += THREADS, w.next()) {
-      uint4 v[4];
-      load_unit(a, b, oy0, ox0, w.q, w.rest, v);
-      store_unit(a, in, w.q, w.rest, v);
-    }
-  }
+  hop::fence_async_shared();  // the weights, written by threads, are read by wgmma
   __syncthreads();
 
-  for (; t < a.tiles; t += gridDim.x) {
+  if (warp < 4) {
+    // -- the producer warpgroup: each tile's input, once stage 1 of the
+    // tile `stages` before has read the stage
+    hop::setmaxnreg_dec<PREG>();
+    int i = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
+      int b, oy0, ox0;
+      tile_origin(a, t, b, oy0, ox0);
+      ring.acquire(i);
+      stage_tile(a, reinterpret_cast<unsigned short*>(smem + sm.in + ring.stage(i) * sm.in_bytes), b, oy0, ox0,
+                 tid);
+      ring.publish(i);
+    }
+    return;
+  }
+
+  // -- consumer warpgroup c, warp w: rows 16 w .. 16 w + 15 of each m64 tile
+  hop::setmaxnreg_inc<CREG>();
+  const int c = (warp >> 2) - 1, w = warp & 3, ctid = tid - 128 * (c + 1);
+  const int q = lane & 15, gid = lane >> 2, cq = (lane & 3) * 2;
+  const uint32_t rowb1 = a.cps1 * 2, rowb2 = a.cps2 * 2;
+  const uint32_t lk = (lane >> 4) * 16;  // the lane's channel half of an ldmatrix row
+  const uint64_t bd2 = hop::kmajor_desc(smem_u32(w2s), a.coutp);
+  const uint32_t slot1 = a.cmidp * a.kc1 * 2, slot2 = a.coutp * a.cmidp * 2;
+  const int k1 = a.kc1 / 16, k2 = a.cmidp / 16;
+  // the consumer's stage-1 columns [col1, col1 + N1): N1 / 8 core-matrix row
+  // groups of 128 bytes from the first
+  const int col1 = SOLO ? 0 : c * N1;
+  const uint64_t bd1 = hop::desc_at(hop::kmajor_desc(smem_u32(w1s), a.cmidp), col1 * 16);
+  unsigned short* mid = reinterpret_cast<unsigned short*>(smem + sm.mid + (SOLO ? c : 0) * sm.mid_bytes);
+  unsigned short* st = reinterpret_cast<unsigned short*>(smem + sm.out + c * sm.out_bytes);
+  // stage 1's A row of m-tile m: intermediate pixel p; rows past the tile
+  // read its last pixel and are never stored
+  const auto am1 = [&](int m) {
+    const int p = min(m * 64 + 16 * w + q, MP - 1);
+    return ((p / MW) * IW + p % MW) * rowb1 + lk;
+  };
+  uint32_t a1[MT1];
+#pragma unroll
+  for (int m = 0; m < MT1; ++m) a1[m] = am1(m);
+  const auto tap1 = [&](int tp) { return ((tp / 3) * IW + tp % 3) * rowb1; };
+  const auto desc1 = [&](int tp) { return hop::desc_at(bd1, tp * slot1); };
+  // stage 2's A row: intermediate pixel (row 4 m + w + ky, column q + kx)
+  const uint32_t am2 = smem_u32(mid) + ((SOLO ? w : 4 * c + w) * MW + q) * rowb2 + lk;
+  const auto tap2 = [&](int tp) { return ((tp / 3) * MW + tp % 3) * rowb2; };
+  const auto desc2 = [&](int tp) { return hop::desc_at(bd2, tp * slot2); };
+  // m-tile m of stage 1 into the intermediate: bias, ReLU, one rounding to
+  // bf16, zero outside the image
+  const auto to_mid = [&](int m, const float (&acc)[N1 / 2], int oy0, int ox0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m * 64 + 16 * w + gid + 8 * h;
+      if (p >= MP) continue;
+      const int gy = oy0 - 1 + p / MW, gx = ox0 - 1 + p % MW;
+      const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+#pragma unroll
+      for (int j = 0; j < N1 / 8; ++j) {
+        const int col = col1 + 8 * j + cq;
+        uint32_t pair = 0;
+        if (inside) {
+          const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16(fmaxf(acc[4 * j + 2 * h] + b1s[col], 0.f)));
+          const uint32_t hi =
+              __bfloat16_as_ushort(__float2bfloat16(fmaxf(acc[4 * j + 2 * h + 1] + b1s[col + 1], 0.f)));
+          pair = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint32_t*>(mid + p * a.cps2 + col) = pair;
+      }
+    }
+  };
+  // output row r of the tile, stage-2 accumulators: bias, ReLU, bf16 into
+  // the consumer's output stage (rows of TW per column, os apart)
+  const auto to_stage = [&](int r, const float (&acc)[N2 / 2], int os) {
+#pragma unroll
+    for (int j = 0; j < N2 / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + cq + (e & 1), x = gid + 8 * (e >> 1);
+        st[col * os + r * TW + x] = __bfloat16_as_ushort(__float2bfloat16(fmaxf(acc[4 * j + e] + b2s[col], 0.f)));
+      }
+  };
+  // the stage's nr rows out, from output row oy0 + r0, by the consumer's threads
+  const auto store_rows = [&](int b, int oy0, int ox0, int r0, int nr, int os) {
+    constexpr int VPR = TW / 8;  // 16-byte vectors per stage row
+    for (int k = ctid; k < a.cout * nr * VPR; k += 128) {
+      const int vx = k % VPR, rr = (k / VPR) % nr, co = k / (VPR * nr);
+      const int oy = oy0 + r0 + rr, ox = ox0 + vx * 8;
+      if (oy >= a.H || ox >= a.W) continue;
+      const uint4 v = *reinterpret_cast<const uint4*>(st + co * os + rr * TW + vx * 8);
+      unsigned short* dst = a.out + ((static_cast<long long>(b) * a.cout + co) * a.H + oy) * a.W + ox;
+      if (a.out_vec && ox + 8 <= a.W) {
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+        const unsigned short* e = reinterpret_cast<const unsigned short*>(&v);
+        for (int j = 0; j < 8 && ox + j < a.W; ++j) dst[j] = e[j];
+      }
+    }
+  };
+
+  if constexpr (SOLO) {
+    // the block's tiles i = c, c + 2, ...: stage c of the ring. Both
+    // consumers run the same turns (the count is the block's): one without a
+    // tile on the last turn still issues its wgmmas, on its own stage and
+    // intermediate, and skips only the barriers and the stores (ptxas
+    // serializes every wgmma of a kernel where a warp-dependent branch skips
+    // one)
+    const int nb = (a.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+    for (int k = 0; 2 * k < nb; ++k) {
+      const int i = 2 * k + c;
+      const bool have = i < nb;
+      int b = 0, oy0 = 0, ox0 = 0;
+      if (have) {
+        tile_origin(a, blockIdx.x + i * gridDim.x, b, oy0, ox0);
+        ring.take(i);
+      }
+      const uint32_t in = smem_u32(smem + sm.in + c * sm.in_bytes);
+      {
+        float acc1[MT1][N1 / 2];
+        hop::gemm_taps_mt<N1, KB, MT1>(
+            acc1, 9, k1, a.cmidp, [&](int m, int tp) { return in + a1[m] + tap1(tp); }, desc1, [&] {
+              if (have) ring.release(i);
+            });
+#pragma unroll
+        for (int m = 0; m < MT1; ++m) to_mid(m, acc1[m], oy0, ox0);
+      }
+      hop::named_sync(1 + c, 128);  // the intermediate is whole
+      float acc2[2][N2 / 2];
+      hop::gemm_taps_mt<N2, KMAX2, 2>(
+          acc2, 9, k2, a.coutp, [&](int m, int tp) { return am2 + 4 * m * MW * rowb2 + tap2(tp); }, desc2, [] {});
+#pragma unroll
+      for (int m = 0; m < 2; ++m) to_stage(4 * m + w, acc2[m], OS8);
+      hop::named_sync(1 + c, 128);  // the stage is whole; the intermediate is read
+      if (have) store_rows(b, oy0, ox0, 0, TH, OS8);
+      hop::named_sync(1 + c, 128);  // the stage is read out
+    }
+    return;
+  }
+
+  float acc2[N2 / 2];
+  int i = 0;
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
     int b, oy0, ox0;
     tile_origin(a, t, b, oy0, ox0);
-
+    ring.take(i);
+    const uint32_t in = smem_u32(smem + sm.in + ring.stage(i) * sm.in_bytes);
     // -- stage 1: the intermediate tile from the input tile
-    {
-      float acc[MT1][2 * NTP1][4];
+    const auto release = [&] { ring.release(i); };  // the input stage is read: the next tile may load
+    if constexpr (KB == 4 && N1 == 16) {
+      // the three m-tiles of a tap as one group
+      float acc1[MT1][N1 / 2];
+      hop::gemm_taps_mt<N1, KB, MT1>(
+          acc1, 9, k1, a.cmidp, [&](int m, int tp) { return in + a1[m] + tap1(tp); }, desc1, release);
 #pragma unroll
-      for (int m = 0; m < MT1; ++m)
-#pragma unroll
-        for (int n = 0; n < 2 * NTP1; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+      for (int m = 0; m < MT1; ++m) to_mid(m, acc1[m], oy0, ox0);
+    } else {
 #pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap)
-        mma_tap<MT1, NTP1>(acc, am1, ((tap / 3) * IW + tap % 3) * rowb1, bl1 + tap * slot1, 16 * rowb1, k1);
-      // bias, ReLU, one rounding to bf16, zero outside the image
-#pragma unroll
-      for (int m = 0; m < MT1; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = (wm * MT1 + m) * 16 + gid + 8 * h;
-          if (p >= MP) continue;
-          const int gy = oy0 - 1 + p / MW, gx = ox0 - 1 + p % MW;
-          const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-#pragma unroll
-          for (int n = 0; n < 2 * NTP1; ++n) {
-            const int col = c1 + n * 8 + cq;
-            uint32_t pair = 0;
-            if (inside) {
-              const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16(fmaxf(acc[m][n][2 * h] + b1s[col], 0.f)));
-              const uint32_t hi =
-                  __bfloat16_as_ushort(__float2bfloat16(fmaxf(acc[m][n][2 * h + 1] + b1s[col + 1], 0.f)));
-              pair = lo | (hi << 16);
-            }
-            *reinterpret_cast<uint32_t*>(mid + p * a.cps2 + col) = pair;
-          }
-        }
+      for (int m = 0; m < MT1; ++m) {
+        float acc1[N1 / 2];
+        const uint32_t base = in + am1(m);
+        hop::gemm_taps<N1, KB, (N1 == 16 || KB == 4)>(
+            acc1, 9, k1, a.cmidp, [&](int tp) { return base + tap1(tp); }, desc1, [&] {
+              if (m == MT1 - 1) release();
+            });
+        to_mid(m, acc1, oy0, ox0);
+      }
     }
-    __syncthreads();  // the intermediate is whole; the input tile is free
-
-    // -- the next tile's input, into registers while stage 2 runs
-    const int tn = t + gridDim.x;
-    int nb = 0, noy0 = 0, nox0 = 0;
-    uint4 pf[MAXU][4];
-    if (tn < a.tiles) {
-      tile_origin(a, tn, nb, noy0, nox0);
-      tc::Walk w(tid, THREADS, nq);
-#pragma unroll
-      for (int i = 0; i < MAXU; ++i, w.next())
-        if (tid + i * THREADS < units) load_unit(a, nb, noy0, nox0, w.q, w.rest, pf[i]);
-    }
+    hop::named_sync(3, 256);  // the intermediate is whole
 
     // -- stage 2: the output tile from the intermediate
-    float acc[MT2][2 * NTP2][4];
-#pragma unroll
-    for (int m = 0; m < MT2; ++m)
-#pragma unroll
-      for (int n = 0; n < 2 * NTP2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap)
-      mma_tap<MT2, NTP2>(acc, am2, ((tap / 3) * MW + tap % 3) * rowb2, bl2 + tap * slot2, 16 * rowb2, k2);
+    hop::gemm_taps<N2, KMAX2, N2 == 32>(acc2, 9, k2, a.coutp, [&](int tp) { return am2 + tap2(tp); }, desc2, [] {});
+    hop::named_sync(3, 256);  // every consumer is done with the intermediate
 
-    if (tn < a.tiles) {
-      tc::Walk w(tid, THREADS, nq);
-#pragma unroll
-      for (int i = 0; i < MAXU; ++i, w.next())
-        if (tid + i * THREADS < units) store_unit(a, in, w.q, w.rest, pf[i]);
-      for (int ui = tid + MAXU * THREADS; ui < units; ui += THREADS, w.next()) {
-        uint4 v[4];
-        load_unit(a, nb, noy0, nox0, w.q, w.rest, v);
-        store_unit(a, in, w.q, w.rest, v);
-      }
-    }
-    __syncthreads();  // every warp is done with the intermediate
-
-    // -- epilogue: bias, ReLU, bf16 into the stage over the intermediate
-    {
-      __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(mid);
-#pragma unroll
-      for (int m = 0; m < MT2; ++m)
-#pragma unroll
-        for (int n = 0; n < 2 * NTP2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int px = gid + (e >> 1) * 8, col = c2 + n * 8 + cq + (e & 1), r = wm * MT2 + m;
-            st[col * OS + r * TW + px] = __float2bfloat16(fmaxf(acc[m][n][e] + b2s[col], 0.f));
-          }
-    }
-    __syncthreads();
-    {
-      constexpr int VPR = TW / 8;  // 16-byte vectors per stage row
-      for (int i = tid; i < a.cout * TH * VPR; i += THREADS) {
-        const int vx = i % VPR, rr = (i / VPR) % TH, co = i / (VPR * TH);
-        const int oy = oy0 + rr, ox = ox0 + vx * 8;
-        if (oy >= a.H || ox >= a.W) continue;
-        const uint4 v = *reinterpret_cast<const uint4*>(mid + co * OS + rr * TW + vx * 8);
-        unsigned short* dst = a.out + ((static_cast<long long>(b) * a.cout + co) * a.H + oy) * a.W + ox;
-        if (a.out_vec && ox + 8 <= a.W) {
-          *reinterpret_cast<uint4*>(dst) = v;
-        } else {
-          const unsigned short* e = reinterpret_cast<const unsigned short*>(&v);
-          for (int j = 0; j < 8 && ox + j < a.W; ++j) dst[j] = e[j];
-        }
-      }
-    }
-    __syncthreads();  // the stage is read out; the next input tile is whole
+    // -- epilogue: bias, ReLU, bf16 into the consumer's stage, then its rows
+    to_stage(w, acc2, OS);
+    hop::named_sync(1 + c, 128);
+    store_rows(b, oy0, ox0, 4 * c, 4, OS);
+    hop::named_sync(1 + c, 128);  // the stage is read out
   }
 }
 
-template <int NTP1, int NTP2>
+template <int N1, int N2, int KB, bool SOLO = false>
 int launch(Args& a, size_t smem, cudaStream_t st) {
-  void (*k)(const Args) = chain_tc_kernel<NTP1, NTP2>;
+  void (*k)(const Args) = chain_tc_kernel<N1, N2, KB, SOLO>;
+  static const bool regs = hop::reg_plan_fits(k, THREADS, 1, PREG, 2, CREG);
+  if (!regs) return static_cast<int>(cudaErrorInvalidConfiguration);
   int resident = 0;
   if (const int e = resident_blocks(k, THREADS, smem, resident)) return e;
   const int grid = a.tiles < resident ? a.tiles : resident;
@@ -384,15 +423,15 @@ int launch(Args& a, size_t smem, cudaStream_t st) {
 // b1 (cmid), w2 (cout, cmid, 3, 3), b2 (cout), all f32 (w_dtype 0) or all
 // bf16 (1), the weights rounded to bf16 as they are staged; out (B, cout, H,
 // W) bf16, contiguous. Takes cmid and cout up to 64 (run as 32 or 64
-// columns) and cin up to where both stages' weights and the tiles fit in
-// shared memory (80 at 64 channels); returns cudaErrorInvalidValue for any
-// other call, else cudaGetLastError() after the launch.
+// columns) and cin up to 128 where both stages' weights and the tiles fit
+// in shared memory (80 at 64 channels); returns cudaErrorInvalidValue for
+// any other call, else cudaGetLastError() after the launch.
 extern "C" int nct_conv_chain_tc(const void* x, int B, int H, int W, int cin, int cmid, int cout, const void* w1,
                                  const void* b1, const void* w2, const void* b2, int w_dtype, void* out,
                                  void* stream) {
   using namespace nct;
   using namespace nct::chain_tc;
-  if (B < 1 || H < 1 || W < 1 || cin < 1 || cmid < 1 || cmid > 64 || cout < 1 || cout > 64 ||
+  if (B < 1 || H < 1 || W < 1 || cin < 1 || cin > 128 || cmid < 1 || cmid > 64 || cout < 1 || cout > 64 ||
       (w_dtype != F32 && w_dtype != BF16) || !b1 || !b2)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
@@ -410,9 +449,18 @@ extern "C" int nct_conv_chain_tc(const void* x, int B, int H, int W, int cin, in
   a.tiles_x = (W + TW - 1) / TW;
   a.tiles_y = (H + TH - 1) / TH;
   a.tiles = B * a.tiles_x * a.tiles_y;
-  const size_t smem = Smem(a.cmidp, a.coutp, a.cps1, a.cps2).total;
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (a.cmidp == 64) return a.coutp == 64 ? launch<2, 2>(a, smem, st) : launch<2, 1>(a, smem, st);
-  return a.coutp == 64 ? launch<1, 2>(a, smem, st) : launch<1, 1>(a, smem, st);
+  if (a.kc1 <= 64 && a.cmidp == 32 && a.coutp == 32) {  // solo consumers, two stages (at most 173 KB)
+    a.stages = 2;
+    return launch<32, 32, 4, true>(a, Smem(a.kc1, 32, 32, a.cps1, a.cps2, 2, true).total, st);
+  }
+  a.stages = Smem(a.kc1, a.cmidp, a.coutp, a.cps1, a.cps2, 2, false).total <= MAX_SMEM ? 2 : 1;
+  const size_t smem = Smem(a.kc1, a.cmidp, a.coutp, a.cps1, a.cps2, a.stages, false).total;
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.kc1 <= 64) {
+    if (a.cmidp == 64) return a.coutp == 64 ? launch<32, 64, 4>(a, smem, st) : launch<32, 32, 4>(a, smem, st);
+    return launch<16, 64, 4>(a, smem, st);
+  }
+  if (a.cmidp == 64) return a.coutp == 64 ? launch<32, 64, 8>(a, smem, st) : launch<32, 32, 8>(a, smem, st);
+  return a.coutp == 64 ? launch<16, 64, 8>(a, smem, st) : launch<16, 32, 8>(a, smem, st);
 }

@@ -5,8 +5,8 @@
 // transpose conv with output_padding 1 (of a 3x3 stride-2 conv), the 3x3
 // pad-1 conv with the flipped, in/out-transposed weight (of a stride-1
 // conv) and the 4x4/s2/p1 conv (of the 4x4/s2 transpose conv); bf16 in and
-// out with f32 accumulation, as one implicit-GEMM kernel template
-// (nct_conv_tc).
+// out with f32 accumulation, as implicit-GEMM kernel templates behind one
+// entry (nct_conv_tc).
 //
 // Replaces nconv_tpu/ops/pallas_conv.py:_kernel (:128) in its bf16 stride-1,
 // residual_channels, multi-part, stride-2 and d2s_channels forms (the mixed
@@ -17,18 +17,17 @@
 // lane_stride2 kw=4 conv of the transpose conv's cotangent (pallas_s2._ct_bwd,
 // :220). f32 stays on the CUDA-core kernels of conv.cu and convt.cu, the
 // uint8 frame and the 1-channel heads run on conv_thin.cu, and the bf16
-// conv chain on conv_chain_tc.cu, which shares tc.cuh.
+// conv chain on conv_chain_tc.cu, which shares tc.cuh and hopper.cuh.
 //
 // Bound on the H100: at 32-64 channels a 3x3 conv does 2*9*cout FLOP per
 // input value over (cin + cout) * 2 bytes, at the card's bf16 ridge (~295
 // FLOP/byte), so both the bytes and the tensor-core issue matter, and a
 // design that reads its input once per few output channels (as conv.cu
-// does) is bound by re-reads. Here:
-//  * GEMM: M = the output pixels of a tile (rows of 16 along W), N = every
-//    output channel (2 * cout for the residual form, whose shortcut columns
-//    run the centre tap only; 4 * cout for the transpose conv, one group per
-//    output parity), K = taps x cin. mma.sync m16n8k16 bf16 -> f32, operands
-//    fed by ldmatrix.
+// does) is bound by re-reads. Both mainloops below share one geometry:
+//  * GEMM: M = the output pixels of a tile (rows of TW = 16 along W), N =
+//    every output channel (the residual form's shortcut is a second
+//    accumulator that runs the centre tap only; a transpose conv runs one
+//    output parity at a time), K = taps x cin.
 //  * The input tile is staged once, channels-last ([pixel][channel], rows
 //    padded by 8 channels so ldmatrix is conflict-free), transposed on the
 //    way in from NCHW: 16-byte vectors along W where a part allows it,
@@ -39,12 +38,57 @@
 //  * One block computes all output channels of its tile, and holds all its
 //    weights resident in shared memory as bf16 (rounded to nearest even as
 //    it stages them from their stored type, f32 or bf16), staged once:
-//    blocks are persistent (as many as fit on the card) and loop over
-//    tiles, each prefetching its next tile into registers while its MMAs run.
+//    blocks are persistent (as many as fit on the card) and loop over tiles.
 //  * The transpose conv is a 3x3-footprint conv over its input grid: output
 //    parity (py, px) takes 2x2 of the taps (dy in {-1, 0} for py = 0, {0, 1}
-//    for py = 1, the same for x), each warp's columns belong to one parity
-//    and run only its 4 taps, and the epilogue stores depth-to-space.
+//    for py = 1, the same for x), and the epilogue stores depth-to-space.
+//  * The tensor cores truncate their f32 sums (a bias toward zero at every
+//    MMA), so each tap sums into registers of its own that join the total
+//    with one rounded add: the bias stays that of kc / 16 MMAs, not of 9 x
+//    that, and bf16 outputs round as an f32 sum would round them.
+//  * Epilogue: bias in f32, ReLU, the shortcut added, one rounding to bf16,
+//    staged in shared memory so the NCHW stores are 16-byte vectors.
+//
+// Hopper's mainloop (conv_wg_kernel) runs the serving forms, S1 and S2 with
+// and without the residual shortcut and T, and the stride-1 input cotangent
+// S1F. In the design it replaced (mma.sync m16n8k16 fed by ldmatrix for A
+// and B, every warp both loading and computing, the next tile prefetched
+// into registers, five block-wide barriers a tile) the loads and the
+// epilogue, not the MMAs, set the time; here they run beside the MMAs:
+//  * Two producer warpgroups stage input tiles into a ring of one or two
+//    stages, each guarded by a pair of mbarriers (full: every producer
+//    thread's arrival; empty: every consumer thread's, after its last
+//    ldmatrix of the tile, so the next tile loads during the last tap's
+//    MMAs and the epilogue). Neighbouring producer threads read neighbouring
+//    16-byte pieces of a channel row (whole 32-byte sectors, where
+//    neighbouring channel quads touched 32 sectors a load) and keep four
+//    units' loads in flight. With one producer warpgroup the staging bounded
+//    the frame's 32-channel convs on the H100, so there are two.
+//  * One or two consumer warpgroups each own 4 tile rows (64 GEMM rows) and
+//    run wgmma m64nNk16 (N = the padded cout, 32, 64 or 128): A from
+//    registers (ldmatrix at the per-lane tap addresses, warp w of the group
+//    rows 16 w .. 16 w + 15), B read straight from the resident weights
+//    through descriptors (K-major, hopper.cuh), so no warp spends ldmatrix
+//    issue on B. Each tap's partial sum starts afresh and joins the total
+//    with one rounded add; two taps are in flight (hopper.cuh, gemm_taps),
+//    since at these widths a tap's time is mostly the wgmma's latency.
+//  * setmaxnreg leaves the producers 104-112 registers and gives the
+//    consumers 152 (two warpgroups, 512 threads) or 232 (one, 384 threads):
+//    the host checks the kernel's register count against that plan before
+//    a launch, so a count that could not serve it refuses the launch.
+//  * Each consumer warpgroup has its own output stage and synchronises only
+//    its own 128 threads (named barriers): no block-wide barrier after the
+//    weights are staged.
+//  * Plan (wg_plan): two consumer warpgroups (8 tile rows) where N <= 64
+//    (32 for a transpose conv) and kc <= 64, else one (4 rows); two stages
+//    where they fit beside the weights, else one; the first of (2, 2),
+//    (1, 2), (2, 1), (1, 1) (consumers, stages) inside a block's 227 KB.
+// The training forms T3 and K4 stay on the mma.sync mainloop of the design
+// before (conv_tc_kernel, fixed routing by mode). T3 ran on the Hopper
+// mainloop too (its parities as T's, with 1, 2, 2 and 4 taps), but on the
+// guided step's three calls it was no faster on the H100, so it stays. K4's
+// 16 taps at 65 -> 128 padded columns (262 KB of weights) do not fit a
+// block, and the Hopper mainloop has no column groups yet:
 //  * The 3x3/s2 transpose conv (mode T3) is the same over a 2x2 footprint:
 //    output (2i + py, 2j + px) reads input (i + ay, j + ax) at tap
 //    (py + 1 - 2 ay, px + 1 - 2 ax), so parity (0, 0) takes 1 tap, (0, 1)
@@ -52,15 +96,7 @@
 //    stay resident, one slot a tap: 157 KB at 128 -> 64 channels; with the
 //    4 x 16 tile's input and depth-to-space output stages (one buffer, 34
 //    KB) 191 KB, one block a SM. The warps of parity (1, 1) run 4 taps
-//    while those of (0, 0) run 1, and the block waits on the longest; on
-//    the guided net's cotangents that costs nothing measurable (pairing the
-//    parities 4 + 1 and 2 + 2 on each warp scheduler gained nothing on the
-//    H100): the loads and the epilogue, not the MMAs, set the time.
-//  * The input cotangent of a stride-1 conv (mode S1F, mode S1 with w_flip
-//    on the C entry) is mode S1 on the forward conv's own weight as stored,
-//    (o, i, 3, 3) for forward output o (here an input channel) and input i
-//    (here an output column): the staging puts tap 8 - t of w[o][i] into
-//    slot t, column i, so no flipped, transposed copy is made per call.
+//    while those of (0, 0) run 1, and the block waits on the longest.
 //  * The 4x4/s2/p1 conv (mode K4) is mode S2's geometry with a 4x4
 //    footprint: an input tile of (TH - 1) * 2 + 4 rows by 34 pixels, 16 tap
 //    slots, a tap a row address at stride 2 (so, as in mode S2, a tap's 16
@@ -71,15 +107,16 @@
 //    groups: each block holds one group's weights (65 -> two groups of 48:
 //    111 KB) and walks every tile for that group, so the input is read once
 //    per group.
-//  * Epilogue: bias in f32, ReLU, the shortcut columns added, one rounding to
-//    bf16, staged in shared memory so the NCHW stores are 16-byte vectors.
-#include "tc.cuh"
+//  * There mma.sync m16n8k16 bf16 -> f32 is fed by ldmatrix for A and B,
+//    every warp loads and computes, and the next tile is prefetched into
+//    registers while the MMAs run.
+#include "hopper.cuh"
 
 namespace nct {
 namespace tc {
 
-constexpr int TW = 16;       // tile width in output pixels: one m16 MMA tile per tile row
-constexpr int THREADS = 256;  // at most, per block
+constexpr int TW = 16;        // tile width in output pixels: one m16 MMA tile per tile row
+constexpr int THREADS = 256;  // at most, per block of the mma.sync mainloop
 
 // conv stride 1, conv stride 2, 4x4/s2 transpose conv, 3x3/s2 transpose
 // conv, 4x4/s2 conv, and the stride-1 conv on a flipped, in/out-transposed
@@ -99,9 +136,10 @@ struct Args {
   int vec[MAX_PARTS];  // 1: rows may be read as aligned 16-byte vectors
   int nparts, B, H, W, cin, cout, ho, wo;
   int kc;     // cin rounded up to 16
-  int cps;    // shared-memory row of a pixel or a weight column, bf16: kc + 8
-  int coutp;   // a block's columns: its group of cout, rounded up to the columns of the warps
+  int cps;    // shared-memory row of a staged pixel (and of an mma.sync weight column), bf16: kc + 8
+  int coutp;   // a block's columns: its group of cout, rounded up to the columns of the warps (wgmma: N)
   int groups;  // column groups: block b computes columns [(b % groups) * coutp, + coutp)
+  int stages;  // wgmma: input stages in the ring (1 or 2)
   int relu;
   const void* w;    // conv (cout, cin, k, k); transpose conv and S1F (cin, cout, k, k)
   const void* wsc;  // (cout, cin): 1x1 shortcut of the residual form, w's type
@@ -128,24 +166,21 @@ struct Geo {
 
 // The input tile is loaded in units of four channels x 8 pixels of one tile
 // row (four 16-byte row pieces, stored as 8 channel-quads of 8 bytes): unit
-// i is quad q of group g, row yy, with rest = yy * G + g and n the quads per
-// pixel (a Walk over the units).
-template <int G>
-__device__ __forceinline__ void load_unit(const Args& a, int b, int iy0, int x0, const Walk& w,
+// (q, g, yy) is channel quad q of 8-pixel group g of tile row yy.
+__device__ __forceinline__ void load_unit(const Args& a, int b, int iy0, int x0, int q, int g, int yy,
                                           uint4 (&v)[4]) {
-  load_quad(a.parts, a.vec, a.nparts, a.cin, b, 4 * w.q, iy0 + w.rest / G, a.H, x0 + 8 * (w.rest % G), a.W, v);
+  load_quad(a.parts, a.vec, a.nparts, a.cin, b, 4 * q, iy0 + yy, a.H, x0 + 8 * g, a.W, v);
 }
 
 // pixel j of the unit's four channels, as one 8-byte channel-quad
 template <int G, int IW>
-__device__ __forceinline__ void store_unit(const Args& a, unsigned short* u, const Walk& w,
+__device__ __forceinline__ void store_unit(const Args& a, unsigned short* u, int q, int g, int yy,
                                            const uint4 (&v)[4]) {
-  const int g = w.rest % G, yy = w.rest / G;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int xx = 8 * g + j - 7;
     if (xx < 0 || xx >= IW) continue;
-    *reinterpret_cast<uint2*>(u + (yy * IW + xx) * a.cps + 4 * w.q) = quad_of(v, j);
+    *reinterpret_cast<uint2*>(u + (yy * IW + xx) * a.cps + 4 * q) = quad_of(v, j);
   }
 }
 
@@ -156,6 +191,34 @@ __device__ __forceinline__ void tile_origin(const Args& a, int t, int& b, int& o
   oy0 = (r / a.tiles_x) * TH;
   ox0 = (r % a.tiles_x) * TW;
 }
+
+// Output rows from a stage of NR rows of OW pixels per column (column co at
+// st + co * os), by nthr threads from thread i0: rows y0 + rr * rstep,
+// columns x0 .. x0 + OW - 1 of channel co of image b, 16-byte vectors where
+// the output allows, elements at its ragged edge; nothing outside it.
+template <int NR, int OW>
+__device__ __forceinline__ void store_rows(const Args& a, const unsigned short* st, int os, int ncol, int b,
+                                           int cbase, int y0, int rstep, int x0, int i0, int nthr) {
+  constexpr int VPR = OW / 8;  // 16-byte vectors per stage row
+  for (int i = i0; i < ncol * NR * VPR; i += nthr) {
+    const int vx = i % VPR, rr = (i / VPR) % NR, co = i / (VPR * NR);
+    const int oy = y0 + rr * rstep, ox = x0 + vx * 8;
+    if (oy >= a.ho || ox >= a.wo) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(st + co * os + rr * OW + vx * 8);
+    unsigned short* dst = reinterpret_cast<unsigned short*>(a.out) +
+                          ((static_cast<long long>(b) * a.cout + cbase + co) * a.ho + oy) * a.wo + ox;
+    if (a.out_vec && ox + 8 <= a.wo) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const unsigned short* e = reinterpret_cast<const unsigned short*>(&v);
+      for (int j = 0; j < 8 && ox + j < a.wo; ++j) dst[j] = e[j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The mma.sync mainloop: modes T3 and K4
+// ---------------------------------------------------------------------------
 
 // acc[mt][nt] += A(tap) x B(slot) over all of K: two m-tiles (the warp's two
 // tile rows) by NTP pairs of n-tiles. a0: the lane's ldmatrix row address of
@@ -182,11 +245,8 @@ struct Frags {
   }
 };
 
-// The tensor cores' f32 sums are not rounded to nearest (they truncate, a
-// bias toward zero at every MMA), so a tap's MMAs sum into registers of their
-// own that join the total with one rounded add: the bias stays that of
-// kchunks MMAs, not of 9 x kchunks, and bf16 outputs round as an f32 sum
-// would round them.
+// A tap's MMAs sum into registers of their own that join the total with
+// one rounded add (the header's precision note).
 template <int NTP>
 __device__ __forceinline__ void mma_tap(float (&acc)[2][2 * NTP][4], uint32_t a0, uint32_t arow,
                                         uint32_t b0, uint32_t bpair, int kchunks) {
@@ -215,11 +275,10 @@ __device__ __forceinline__ void mma_tap(float (&acc)[2][2 * NTP][4], uint32_t a0
       for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
 }
 
-// MODE: a Mode. RES: the residual form (conv only). NTP: pairs of 8-column
-// n-tiles per warp and column group. WM: warps along M, two tile rows each
-// (TH = 2 WM). The block has WM x WN warps, WN = coutp / (16 NTP) column
-// blocks (times 4 parities for T and T3).
-template <int MODE, bool RES, int NTP, int WM>
+// MODE: T3 or K4. NTP: pairs of 8-column n-tiles per warp and column group.
+// WM: warps along M, two tile rows each (TH = 2 WM). The block has WM x WN
+// warps, WN = coutp / (16 NTP) column blocks (times 4 parities for T3).
+template <int MODE, int NTP, int WM>
 __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   constexpr int TH = 2 * WM, NT = 2 * NTP;
   // input units (4 channels x 8 pixels) prefetched per thread; fewer where
@@ -228,7 +287,7 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   using Gm = Geo<MODE, TH>;
   constexpr int S = Gm::S;
   NCT_DYN_SHARED(unsigned char, smem);
-  constexpr int nslots = slots(MODE, RES);
+  constexpr int nslots = slots(MODE, false);
   unsigned short* ws = reinterpret_cast<unsigned short*>(smem);
   float* bs = reinterpret_cast<float*>(smem + static_cast<size_t>(nslots) * a.coutp * a.cps * 2);
   unsigned short* u = reinterpret_cast<unsigned short*>(bs + a.coutp);
@@ -248,27 +307,14 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   auto put = [&](int slot, int co, int k, const void* src, long long i) {
     ws[(slot * a.coutp + co) * a.cps + k] = __bfloat16_as_ushort(__float2bfloat16(load_w(src, a.w_bf16, i)));
   };
-  if constexpr (MODE == T) {
-    // (cin, cout, 4, 4): tap ky = 3 - py - 2 ay of parity py reads input
-    // row i + ay - 1 + py; slot = parity * 4 + ay * 2 + ax
+  if constexpr (MODE == T3) {
+    // (cin, cout, 3, 3): slot = ky * 3 + kx
     Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
     for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
 #pragma unroll
-      for (int kk = 0; kk < 16; ++kk) {
-        const int ky = kk / 4, kx = kk % 4;
-        const int py = (3 - ky) & 1, px = (3 - kx) & 1, ay = (3 - ky) >> 1, ax = (3 - kx) >> 1;
-        put((py * 2 + px) * 4 + ay * 2 + ax, w.q, w.rest, a.w, 16LL * rr + kk);
-      }
+      for (int tap = 0; tap < 9; ++tap) put(tap, w.q, w.rest, a.w, 9LL * rr + tap);
     }
-  } else if constexpr (MODE == T3 || MODE == S1F) {
-    // (cin, cout, 3, 3): slot = ky * 3 + kx; for S1F the stride-1 conv's
-    // weight, flipped: slot = (2 - ky) * 3 + 2 - kx
-    Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
-    for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) put(MODE == S1F ? 8 - tap : tap, w.q, w.rest, a.w, 9LL * rr + tap);
-    }
-  } else if constexpr (MODE == K4) {
+  } else {
     // (cout, cin, 4, 4), the block's columns only: slot = ky * 4 + kx
     Walk w(tid, nthr, a.cin);  // q: input channel, rest: the block's output channel
     for (int rr = tid; rr < ncol * a.cin; rr += nthr, w.next()) {
@@ -276,17 +322,10 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
 #pragma unroll
       for (int tap = 0; tap < 16; ++tap) put(tap, w.rest, w.q, a.w, 16 * row + tap);
     }
-  } else {
-    Walk w(tid, nthr, a.cin);  // q: input channel, rest: output channel
-    for (int rr = tid; rr < a.cout * a.cin; rr += nthr, w.next()) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) put(tap, w.rest, w.q, a.w, 9LL * rr + tap);
-      if constexpr (RES) put(9, w.rest, w.q, a.wsc, rr);
-    }
   }
 
   // -- the warp's place: tile rows 2 wm, 2 wm + 1; columns [c0, c0 + 16 NTP)
-  // of each of its groups (for T, of parity par's group)
+  // of each of its groups (for T3, of parity par's group)
   const int wnc = a.coutp / (16 * NTP);
   const int par = transposed(MODE) ? wn / wnc : 0;
   const int c0 = (transposed(MODE) ? wn % wnc : wn) * 16 * NTP;
@@ -310,8 +349,8 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
     Walk w(tid, nthr, nq);
     for (int ui = tid; ui < units; ui += nthr, w.next()) {
       uint4 v[4];
-      load_unit<Gm::G>(a, b, oy0 * S - 1, ox0 * S - 8, w, v);
-      store_unit<Gm::G, Gm::IW>(a, u, w, v);
+      load_unit(a, b, oy0 * S - 1, ox0 * S - 8, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
+      store_unit<Gm::G, Gm::IW>(a, u, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
     }
   }
   __syncthreads();
@@ -328,29 +367,18 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
       Walk w(tid, nthr, nq);
 #pragma unroll
       for (int i = 0; i < MAXU; ++i, w.next())
-        if (tid + i * nthr < units) load_unit<Gm::G>(a, nb, noy0 * S - 1, nox0 * S - 8, w, pf[i]);
+        if (tid + i * nthr < units)
+          load_unit(a, nb, noy0 * S - 1, nox0 * S - 8, w.q, w.rest % Gm::G, w.rest / Gm::G, pf[i]);
     }
 
     float acc[2][NT][4];
-    float accs[RES ? 2 : 1][RES ? NT : 1][4];
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[m][n][e] = 0.f;
-          if constexpr (RES) accs[m][n][e] = 0.f;
-        }
-    if constexpr (MODE == T) {
-      const int py = par >> 1, px = par & 1;
-#pragma unroll
-      for (int ay = 0; ay < 2; ++ay)
-#pragma unroll
-        for (int ax = 0; ax < 2; ++ax)
-          mma_tap<NTP>(acc, a_lane + ((ay + py) * Gm::IW + ax + px) * rowb, arow,
-                       b_lane + (par * 4 + ay * 2 + ax) * bslot, bpair, kchunks);
-    } else if constexpr (MODE == T3) {
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    if constexpr (MODE == T3) {
       // input (i + ay, j + ax) is staged pixel (ay + 1, ax + 1) from the warp's own
       const int py = par >> 1, px = par & 1;
 #pragma unroll 1
@@ -360,17 +388,14 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
           mma_tap<NTP>(acc, a_lane + ((ay + 1) * Gm::IW + ax + 1) * rowb, arow,
                        b_lane + ((py + 1 - 2 * ay) * 3 + px + 1 - 2 * ax) * bslot, bpair, kchunks);
     } else {
-      constexpr int K = ksize(MODE);
 #pragma unroll 1
-      for (int tap = 0; tap < K * K; ++tap)
-        mma_tap<NTP>(acc, a_lane + ((tap / K) * Gm::IW + tap % K) * rowb, arow, b_lane + tap * bslot,
+      for (int tap = 0; tap < 16; ++tap)
+        mma_tap<NTP>(acc, a_lane + ((tap / 4) * Gm::IW + tap % 4) * rowb, arow, b_lane + tap * bslot,
                      bpair, kchunks);
-      if constexpr (RES)
-        mma_tap<NTP>(accs, a_lane + (Gm::IW + 1) * rowb, arow, b_lane + 9 * bslot, bpair, kchunks);
     }
     __syncthreads();  // every warp is done with the input tile
 
-    // -- epilogue: bias, ReLU, shortcut, bf16, into the stage over the tile
+    // -- epilogue: bias, ReLU, bf16, into the stage over the tile
     {
       const int gid = lane >> 2, cq = (lane & 3) * 2;
       __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(u);
@@ -383,7 +408,6 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
             const int px_ = gid + (e >> 1) * 8, col = c0 + n * 8 + cq + (e & 1), r = 2 * wm + m;
             float v = acc[m][n][e] + bs[col];
             if (a.relu) v = fmaxf(v, 0.f);
-            if constexpr (RES) v += accs[m][n][e];
             if constexpr (transposed(MODE))
               st[col * Gm::OS + (2 * r + (par >> 1)) * Gm::OW + 2 * px_ + (par & 1)] = __float2bfloat16(v);
             else
@@ -391,57 +415,40 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
           }
     }
     __syncthreads();
-    {
-      constexpr int VPR = Gm::OW / 8;  // 16-byte vectors per stage row
-      const int oyb = transposed(MODE) ? 2 * oy0 : oy0, oxb = transposed(MODE) ? 2 * ox0 : ox0;
-      for (int i = tid; i < ncol * Gm::OH * VPR; i += nthr) {
-        const int vx = i % VPR, rr = (i / VPR) % Gm::OH, co = i / (VPR * Gm::OH);
-        const int oy = oyb + rr, ox = oxb + vx * 8;
-        if (oy >= a.ho || ox >= a.wo) continue;
-        const uint4 v = *reinterpret_cast<const uint4*>(u + co * Gm::OS + rr * Gm::OW + vx * 8);
-        unsigned short* dst = reinterpret_cast<unsigned short*>(a.out) +
-                              ((static_cast<long long>(b) * a.cout + cbase + co) * a.ho + oy) * a.wo + ox;
-        if (a.out_vec && ox + 8 <= a.wo) {
-          *reinterpret_cast<uint4*>(dst) = v;
-        } else {
-          const unsigned short* e = reinterpret_cast<const unsigned short*>(&v);
-          for (int j = 0; j < 8 && ox + j < a.wo; ++j) dst[j] = e[j];
-        }
-      }
-    }
+    store_rows<Gm::OH, Gm::OW>(a, reinterpret_cast<const unsigned short*>(u), Gm::OS, ncol, b, cbase,
+                               transposed(MODE) ? 2 * oy0 : oy0, 1, transposed(MODE) ? 2 * ox0 : ox0, tid, nthr);
     __syncthreads();  // the stage is read out
 
     if (tn < a.tiles) {
       Walk w(tid, nthr, nq);
 #pragma unroll
       for (int i = 0; i < MAXU; ++i, w.next())
-        if (tid + i * nthr < units) store_unit<Gm::G, Gm::IW>(a, u, w, pf[i]);
+        if (tid + i * nthr < units) store_unit<Gm::G, Gm::IW>(a, u, w.q, w.rest % Gm::G, w.rest / Gm::G, pf[i]);
       for (int ui = tid + MAXU * nthr; ui < units; ui += nthr, w.next()) {
         uint4 v[4];
-        load_unit<Gm::G>(a, nb, noy0 * S - 1, nox0 * S - 8, w, v);
-        store_unit<Gm::G, Gm::IW>(a, u, w, v);
+        load_unit(a, nb, noy0 * S - 1, nox0 * S - 8, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
+        store_unit<Gm::G, Gm::IW>(a, u, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
       }
     }
     __syncthreads();
   }
 }
 
-inline size_t smem_bytes(int mode, bool res, int th, int coutp, int cps) {
+inline size_t smem_bytes(int mode, int th, int coutp, int cps) {
   const int s = stride_of(mode), k = ksize(mode);
   const int ih = (th - 1) * s + k, iw = (TW - 1) * s + k;
   const int oh = transposed(mode) ? 2 * th : th, ow = transposed(mode) ? 2 * TW : TW;
   const size_t in = static_cast<size_t>(ih) * iw * cps * 2;
   const size_t out = static_cast<size_t>(coutp) * (oh * ow + 8) * 2;
-  const int nslots = slots(mode, res);
-  return static_cast<size_t>(nslots) * coutp * cps * 2 + coutp * 4 + (in > out ? in : out);
+  return static_cast<size_t>(slots(mode, false)) * coutp * cps * 2 + coutp * 4 + (in > out ? in : out);
 }
 
-template <int MODE, bool RES, int NTP, int WM>
+template <int MODE, int NTP, int WM>
 int launch(Args& a, int wn, cudaStream_t st) {
   constexpr int TH = 2 * WM;
-  void (*k)(const Args) = conv_tc_kernel<MODE, RES, NTP, WM>;
+  void (*k)(const Args) = conv_tc_kernel<MODE, NTP, WM>;
   const int threads = 32 * WM * wn;
-  const size_t smem = smem_bytes(MODE, RES, TH, a.coutp, a.cps);
+  const size_t smem = smem_bytes(MODE, TH, a.coutp, a.cps);
   const int gy = transposed(MODE) ? a.H : a.ho, gx = transposed(MODE) ? a.W : a.wo;
   a.tiles_x = (gx + TW - 1) / TW;
   a.tiles_y = (gy + TH - 1) / TH;
@@ -457,28 +464,28 @@ int launch(Args& a, int wn, cudaStream_t st) {
 
 // The larger tile (WM 4, else 2) whose warps, weights and input tile fit a
 // block (a transpose conv has at least 4 column groups, so WM 2).
-template <int MODE, bool RES, int NTP>
+template <int MODE, int NTP>
 int launch_fit(Args& a, int wn, cudaStream_t st) {
   if constexpr (!transposed(MODE)) {
-    if (4 * wn * 32 <= THREADS && smem_bytes(MODE, RES, 8, a.coutp, a.cps) <= MAX_SMEM)
-      return launch<MODE, RES, NTP, 4>(a, wn, st);
+    if (4 * wn * 32 <= THREADS && smem_bytes(MODE, 8, a.coutp, a.cps) <= MAX_SMEM)
+      return launch<MODE, NTP, 4>(a, wn, st);
   }
-  if (2 * wn * 32 <= THREADS && smem_bytes(MODE, RES, 4, a.coutp, a.cps) <= MAX_SMEM)
-    return launch<MODE, RES, NTP, 2>(a, wn, st);
+  if (2 * wn * 32 <= THREADS && smem_bytes(MODE, 4, a.coutp, a.cps) <= MAX_SMEM)
+    return launch<MODE, NTP, 2>(a, wn, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int MODE, bool RES>
+template <int MODE>
 int dispatch_ntp(Args& a, int ntp, cudaStream_t st) {
   const int wnc = a.coutp / (16 * ntp), wn = transposed(MODE) ? 4 * wnc : wnc;
   switch (ntp) {
-    case 1: return launch_fit<MODE, RES, 1>(a, wn, st);
-    case 2: return launch_fit<MODE, RES, 2>(a, wn, st);
+    case 1: return launch_fit<MODE, 1>(a, wn, st);
+    case 2: return launch_fit<MODE, 2>(a, wn, st);
   }
   if constexpr (MODE == K4) {
-    if (ntp == 3) return launch_fit<MODE, RES, 3>(a, wn, st);
-  } else if constexpr (!RES) {
-    if (ntp == 4) return launch_fit<MODE, RES, 4>(a, wn, st);
+    if (ntp == 3) return launch_fit<MODE, 3>(a, wn, st);
+  } else {
+    if (ntp == 4) return launch_fit<MODE, 4>(a, wn, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -497,9 +504,289 @@ inline void k4_columns(Args& a) {
     a.coutp = ((a.cout + g - 1) / g + 15) / 16 * 16;
     a.groups = (a.cout + a.coutp - 1) / a.coutp;
     if (a.coutp == 16 || (a.coutp <= 128 && a.coutp / (16 * k4_ntp(a.coutp)) <= 4 &&
-                          smem_bytes(K4, false, 4, a.coutp, a.cps) <= MAX_SMEM))
+                          smem_bytes(K4, 4, a.coutp, a.cps) <= MAX_SMEM))
       return;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Hopper's mainloop: modes S1, S2 (each with the residual form), T, S1F
+// ---------------------------------------------------------------------------
+
+// CW consumer warpgroups a block, each 4 tile rows of TW pixels (its 64
+// GEMM rows; warp w the w-th row), behind PW = 2 producer warpgroups (the
+// staging, not the MMAs, bounds most forms on the H100: one producer left
+// the consumers waiting). One block an SM: the launch gives each thread
+// LREG registers; setmaxnreg then leaves the producers PREG and gives the
+// consumers CREG (two partial sums, two sets of A fragments and the total:
+// about 150 at N = 64 and two consumers, 190 at N = 128 and one).
+template <int CW>
+struct Wg {
+  static constexpr int PW = 2;
+  static constexpr int TH = 4 * CW, THREADS = 128 * (CW + PW);
+  static constexpr int LREG = CW == 2 ? 128 : 168, PREG = CW == 2 ? 104 : 112, CREG = CW == 2 ? 152 : 232;
+  static_assert(128 * (PW * PREG + CW * CREG) <= THREADS * LREG, "the consumers' registers come from the producers'");
+  // k16 steps whose A fragments a consumer holds for a tap: kc <= 64 with
+  // two consumers, kc <= 128 with one
+  static constexpr int KMAX = CW == 2 ? 4 : 8;
+};
+
+// a consumer's output stage: its 4 rows (each OW = TW, 2 TW for a
+// transpose conv's parity row pair) per column, padded by 8 (conflict-free
+// fragment stores)
+__host__ __device__ constexpr int out_stride(int mode) { return 4 * (transposed(mode) ? 2 * TW : TW) + 8; }
+
+// Shared memory of conv_wg_kernel, byte offsets: the weights at 0 (slots x
+// np x kc bf16, each slot a K-major block of np columns), the bias (np
+// f32), the ring's barriers (full[4], empty[4]), the input stages, one
+// output stage per consumer warpgroup.
+struct WgLayout {
+  size_t bias, bars, in, in_bytes, out, out_bytes, total;
+  __host__ __device__ WgLayout(int mode, bool res, int cw, int stages, int np, int kc, int cps) {
+    const int th = 4 * cw, s = stride_of(mode), k = ksize(mode);
+    const size_t ih = (th - 1) * s + k, iw = (TW - 1) * s + k;
+    bias = static_cast<size_t>(slots(mode, res)) * np * kc * 2;
+    bars = bias + static_cast<size_t>(np) * 4;
+    in = bars + 64;
+    in_bytes = (ih * iw * cps * 2 + 15) / 16 * 16;
+    out = in + stages * in_bytes;
+    out_bytes = static_cast<size_t>(np) * out_stride(mode) * 2;
+    total = out + cw * out_bytes;
+  }
+};
+
+// The producer warpgroups' copy of one input tile into a stage: their NP
+// threads over the units, group fastest (neighbouring threads read
+// neighbouring 16-byte pieces of a channel row: whole 32-byte sectors),
+// four units' loads in flight a thread.
+template <class Gm, int NP>
+__device__ __forceinline__ void stage_tile(const Args& a, unsigned short* u, int b, int iy0, int x0, int ptid) {
+  constexpr int U = 4, G = Gm::G;
+  const int nq = a.kc / 4, units = Gm::IH * G * nq;
+  Walk w(ptid, NP, G * nq);  // q: group + G x quad, rest: tile row
+  for (int base = ptid; base < units; base += NP * U) {
+    uint4 v[U][4];
+    Walk wu[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j, w.next()) {
+      wu[j] = w;
+      if (base + NP * j < units) load_unit(a, b, iy0, x0, w.q / G, w.q % G, w.rest, v[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (base + NP * j < units) store_unit<G, Gm::IW>(a, u, wu[j].q / G, wu[j].q % G, wu[j].rest, v[j]);
+  }
+}
+
+// MODE: S1, S2, T or S1F. RES: the residual form (S1, S2). N: the padded
+// cout, the wgmma width (T: a parity's). CW: consumer warpgroups.
+template <int MODE, bool RES, int N, int CW>
+__global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args a) {
+  using P = Wg<CW>;
+  constexpr int TH = P::TH, KMAX = P::KMAX, PW = P::PW, NR = N / 2;
+  constexpr bool TR = transposed(MODE);
+  using Gm = Geo<MODE, TH>;
+  constexpr int S = Gm::S, OW = TR ? 2 * TW : TW, OS = out_stride(MODE), nslots = slots(MODE, RES);
+  NCT_DYN_SHARED(unsigned char, smem);
+  const WgLayout L(MODE, RES, CW, a.stages, N, a.kc, a.cps);
+  unsigned short* ws = reinterpret_cast<unsigned short*>(smem);
+  float* bs = reinterpret_cast<float*>(smem + L.bias);
+  const uint32_t bars = smem_u32(smem + L.bars);
+  const hop::Ring ring{bars, bars + 32, a.stages};
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+
+  // -- weights (K-major, rounded to bf16), bias and barriers, once per block
+  for (int i = tid; i < nslots * N * a.kc / 8; i += nthr) reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < N; i += nthr) bs[i] = (a.bias && i < a.cout) ? load_w(a.bias, a.bias_bf16, i) : 0.f;
+  if (tid == 0) {
+    ring.init(128 * PW, 128 * CW);
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+  const int slot_el = N * a.kc;
+  auto put = [&](int slot, int co, int k, const void* src, long long i) {
+    ws[slot * slot_el + hop::kmajor(co, k, N)] = __bfloat16_as_ushort(__float2bfloat16(load_w(src, a.w_bf16, i)));
+  };
+  if constexpr (MODE == T) {
+    // (cin, cout, 4, 4): tap ky = 3 - py - 2 ay of parity py reads input
+    // row i + ay - 1 + py; slot = parity * 4 + ay * 2 + ax
+    Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
+    for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const int ky = kk / 4, kx = kk % 4;
+        const int py = (3 - ky) & 1, px = (3 - kx) & 1, ay = (3 - ky) >> 1, ax = (3 - kx) >> 1;
+        put((py * 2 + px) * 4 + ay * 2 + ax, w.q, w.rest, a.w, 16LL * rr + kk);
+      }
+    }
+  } else if constexpr (MODE == S1F) {
+    // the stride-1 conv's weight (cin, cout, 3, 3), flipped: slot = (2 - ky) * 3 + 2 - kx
+    Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
+    for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) put(8 - tap, w.q, w.rest, a.w, 9LL * rr + tap);
+    }
+  } else {
+    Walk w(tid, nthr, a.cin);  // q: input channel, rest: output channel
+    for (int rr = tid; rr < a.cout * a.cin; rr += nthr, w.next()) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) put(tap, w.rest, w.q, a.w, 9LL * rr + tap);
+      if constexpr (RES) put(9, w.rest, w.q, a.wsc, rr);
+    }
+  }
+  hop::fence_async_shared();  // the weights, written by threads, are read by wgmma
+  __syncthreads();
+
+  if (warp < 4 * PW) {
+    // -- the producer warpgroups: the block's tiles, one stage each, in turn
+    hop::setmaxnreg_dec<P::PREG>();
+    int i = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
+      int b, oy0, ox0;
+      tile_origin<MODE, TH>(a, t, b, oy0, ox0);
+      ring.acquire(i);
+      stage_tile<Gm, 128 * PW>(a, reinterpret_cast<unsigned short*>(smem + L.in + ring.stage(i) * L.in_bytes), b,
+                               oy0 * S - 1, ox0 * S - 8, tid);
+      ring.publish(i);
+    }
+    return;
+  }
+
+  // -- consumer warpgroup c: warp w computes tile row r = 4 c + w (for T,
+  // input row r, output rows 2 r and 2 r + 1)
+  hop::setmaxnreg_inc<P::CREG>();
+  const int c = (warp >> 2) - PW, w = warp & 3, r = 4 * c + w, ctid = tid - 128 * (c + PW);
+  const int kch = a.kc / 16, gid = lane >> 2, cq = (lane & 3) * 2;
+  const uint32_t rowb = a.cps * 2;  // bytes per staged pixel
+  // ldmatrix lanes: A row = pixel lane % 16 of the warp's row, at channel 8 (lane / 16)
+  const uint32_t a_lane = ((r * S) * Gm::IW + (lane & 15) * S) * rowb + (lane >> 4) * 16;
+  const uint64_t bd = hop::kmajor_desc(smem_u32(ws), N);
+  const uint32_t slot_b = slot_el * 2;
+  unsigned short* st = reinterpret_cast<unsigned short*>(smem + L.out + c * L.out_bytes);
+  float acc[NR], accs[RES ? NR : 1];
+  int i = 0;
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
+    int b, oy0, ox0;
+    tile_origin<MODE, TH>(a, t, b, oy0, ox0);
+    ring.take(i);
+    const uint32_t ab = smem_u32(smem + L.in + ring.stage(i) * L.in_bytes) + a_lane;
+    if constexpr (TR) {
+      for (int py = 0; py < 2; ++py) {
+#pragma unroll 1
+        for (int px = 0; px < 2; ++px) {
+          const int par = 2 * py + px;
+          // parity (py, px): taps (ay, ax) = (t / 2, t % 2) read input (r + ay + py - 1, x + ax + px - 1)
+          hop::gemm_taps<N, KMAX>(
+              acc, 4, kch, N, [&](int t) { return ab + (((t >> 1) + py) * Gm::IW + (t & 1) + px) * rowb; },
+              [&](int t) { return hop::desc_at(bd, (par * 4 + t) * slot_b); },
+              [&] {
+                if (par == 3) ring.release(i);  // the tile's last read of the stage
+              });
+          // bias, ReLU, bf16: output (2 r + py, 2 x + px) at stage row w
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + cq + (e & 1), x = gid + 8 * (e >> 1);
+              float v = acc[4 * j + e] + bs[col];
+              if (a.relu) v = fmaxf(v, 0.f);
+              st[col * OS + w * OW + 2 * x + px] = __bfloat16_as_ushort(__float2bfloat16(v));
+            }
+        }
+        hop::named_sync(1 + c, 128);
+        store_rows<4, OW>(a, st, OS, a.cout, b, 0, 2 * (oy0 + 4 * c) + py, 2, 2 * ox0, ctid, 128);
+        hop::named_sync(1 + c, 128);  // the stage is read out
+      }
+    } else {
+      // tap t = (ky, kx) = (t / 3, t % 3)
+      hop::gemm_taps<N, KMAX>(
+          acc, 9, kch, N, [&](int t) { return ab + ((t / 3) * Gm::IW + t % 3) * rowb; },
+          [&](int t) { return hop::desc_at(bd, t * slot_b); }, [&] {
+            if constexpr (!RES) ring.release(i);  // the tile's last read of the stage
+          });
+      if constexpr (RES) {
+        // the shortcut (slot 9) on the centre tap, afresh: one tap more
+        hop::gemm_taps<N, KMAX>(
+            accs, 1, kch, N, [&](int) { return ab + (Gm::IW + 1) * rowb; },
+            [&](int) { return hop::desc_at(bd, 9 * slot_b); }, [&] { ring.release(i); });
+      }
+      // bias, ReLU, shortcut, bf16 at stage row w
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + cq + (e & 1), x = gid + 8 * (e >> 1);
+          float v = acc[4 * j + e] + bs[col];
+          if (a.relu) v = fmaxf(v, 0.f);
+          if constexpr (RES) v += accs[4 * j + e];
+          st[col * OS + w * OW + x] = __bfloat16_as_ushort(__float2bfloat16(v));
+        }
+      hop::named_sync(1 + c, 128);
+      store_rows<4, OW>(a, st, OS, a.cout, b, 0, oy0 + 4 * c, 1, ox0, ctid, 128);
+      hop::named_sync(1 + c, 128);  // the stage is read out
+    }
+  }
+}
+
+// The widest N two consumers take (their registers: two partial sums, two
+// sets of A fragments and the total; a transpose conv's parity loop needs
+// more, and at 64 ptxas serialized its wgmmas).
+__host__ __device__ constexpr int wg2_max_n(int mode) { return mode == T ? 32 : 64; }
+
+// The first of (consumers, stages) = (2, 2), (1, 2), (2, 1), (1, 1) whose
+// shared memory fits a block; two consumers only where N <= wg2_max_n and
+// kc <= 64, one where kc <= 128. False if none fits.
+inline bool wg_plan(Args& a, int mode, bool res, int& cw, size_t& smem) {
+  static constexpr int opts[4][2] = {{2, 2}, {1, 2}, {2, 1}, {1, 1}};
+  for (const auto& o : opts) {
+    if (a.kc > (o[0] == 2 ? 64 : 128) || (o[0] == 2 && a.coutp > wg2_max_n(mode))) continue;
+    const size_t s = WgLayout(mode, res, o[0], o[1], a.coutp, a.kc, a.cps).total;
+    if (s <= MAX_SMEM) {
+      cw = o[0], a.stages = o[1], smem = s;
+      return true;
+    }
+  }
+  return false;
+}
+
+template <int MODE, bool RES, int N, int CW>
+int launch_wg(Args& a, size_t smem, cudaStream_t st) {
+  using P = Wg<CW>;
+  constexpr int TH = P::TH;
+  void (*k)(const Args) = conv_wg_kernel<MODE, RES, N, CW>;
+  static const bool regs = hop::reg_plan_fits(k, P::THREADS, P::PW, P::PREG, CW, P::CREG);
+  if (!regs) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int gy = transposed(MODE) ? a.H : a.ho, gx = transposed(MODE) ? a.W : a.wo;
+  a.tiles_x = (gx + TW - 1) / TW;
+  a.tiles_y = (gy + TH - 1) / TH;
+  a.tiles = a.B * a.tiles_x * a.tiles_y;
+  int resident = 0;
+  if (const int e = resident_blocks(k, P::THREADS, smem, resident)) return e;
+  NCT_LAUNCH(k, dim3(a.tiles < resident ? a.tiles : resident), dim3(P::THREADS), smem, st, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE, bool RES, int N>
+int launch_wg_cw(Args& a, int cw, size_t smem, cudaStream_t st) {
+  if constexpr (N <= wg2_max_n(MODE)) {
+    if (cw == 2) return launch_wg<MODE, RES, N, 2>(a, smem, st);
+  }
+  return launch_wg<MODE, RES, N, 1>(a, smem, st);
+}
+
+template <int MODE, bool RES>
+int dispatch_wg(Args& a, cudaStream_t st) {
+  int cw = 0;
+  size_t smem = 0;
+  if (!wg_plan(a, MODE, RES, cw, smem)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.coutp) {
+    case 32: return launch_wg_cw<MODE, RES, 32>(a, cw, smem, st);
+    case 64: return launch_wg_cw<MODE, RES, 64>(a, cw, smem, st);
+  }
+  if constexpr (!RES && !transposed(MODE)) {
+    if (a.coutp == 128) return launch_wg_cw<MODE, RES, 128>(a, cw, smem, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tc
@@ -517,8 +804,9 @@ inline void k4_columns(Args& a) {
 // (cout) f32 (bias_dtype 0) or bf16 (1), or null. out: (B, cout, ho, wo)
 // bf16, contiguous. Takes cout up to 128 (64 for the residual form and the
 // transpose convs; any for mode 4, in column groups) where the weights and
-// one input tile fit in shared memory; returns cudaErrorInvalidValue for any
-// other call, else cudaGetLastError() after the launch.
+// the input tiles fit in shared memory (modes 0-2 up to cin 128); returns
+// cudaErrorInvalidValue for any other call, else cudaGetLastError() after
+// the launch. Modes 0-2 run Hopper's mainloop, 3 and 4 the mma.sync one.
 extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_meta, int nparts,
                            int B, int H, int W, int cin, int cout, int mode, const void* w,
                            int w_dtype, int w_flip, const void* wsc, const void* bias, int bias_dtype,
@@ -528,7 +816,8 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   const bool res = wsc != nullptr;
   if (nparts < 1 || nparts > MAX_PARTS || B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1 ||
       mode < S1 || mode > K4 || (res && mode != S1 && mode != S2) || (w_flip != 0 && w_flip != 1) ||
-      (w_flip && (mode != S1 || res)) || (mode == K4 && (H < 2 || W < 2)))
+      (w_flip && (mode != S1 || res)) || (mode == K4 && (H < 2 || W < 2)) ||
+      (w_dtype != F32 && w_dtype != BF16) || (bias_dtype != F32 && bias_dtype != BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   fill_parts(a.parts, part_ptrs, part_meta, nparts);
@@ -546,32 +835,30 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   a.wo = transposed(mode) ? 2 * W : mode == S2 ? (W - 1) / 2 + 1 : mode == K4 ? W / 2 : W;
   a.kc = (cin + 15) / 16 * 16;
   a.cps = a.kc + 8;
-  const int gran = cout <= 16 ? 16 : cout <= 64 ? 32 : 64;
-  a.coutp = (cout + gran - 1) / gran * gran;
   a.groups = 1;
-  if (mode == K4) k4_columns(a);
   a.relu = relu;
   a.w = w, a.wsc = wsc, a.w_bf16 = w_dtype == BF16;
   a.bias = bias, a.bias_bf16 = bias_dtype == BF16;
   a.out = static_cast<__nv_bfloat16*>(out);
   a.out_vec = reinterpret_cast<uintptr_t>(out) % 16 == 0 && a.wo % 8 == 0;
-  // column pairs per warp: a conv's columns at most two warps wide (one up
-  // to 32 channels, measured faster than two narrower warps); a transpose
-  // conv's parity groups one warp wide
-  int ntp = a.coutp / 32 > 1 ? a.coutp / 32 : a.coutp / 16;
-  if (transposed(mode)) ntp = a.coutp / 16 > 4 ? 4 : a.coutp / 16;
-  if (mode == K4) ntp = k4_ntp(a.coutp);
-  if (a.coutp > (transposed(mode) || res ? 64 : 128) || (w_dtype != F32 && w_dtype != BF16) ||
-      (bias_dtype != F32 && bias_dtype != BF16))
-    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  if (mode == T3 || mode == K4) {
+    const int gran = cout <= 16 ? 16 : cout <= 64 ? 32 : 64;
+    a.coutp = (cout + gran - 1) / gran * gran;
+    if (mode == K4) k4_columns(a);
+    // column pairs per warp: a parity's group one warp wide (T3); K4's by
+    // its column groups
+    const int ntp = mode == K4 ? k4_ntp(a.coutp) : (a.coutp / 16 > 4 ? 4 : a.coutp / 16);
+    if (a.coutp > (mode == T3 ? 64 : 128)) return static_cast<int>(cudaErrorInvalidValue);
+    return mode == T3 ? dispatch_ntp<T3>(a, ntp, st) : dispatch_ntp<K4>(a, ntp, st);
+  }
+  a.coutp = cout <= 32 ? 32 : cout <= 64 ? 64 : 128;
+  if (cout > (mode == T || res ? 64 : 128)) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
     case S1:
-      if (w_flip) return dispatch_ntp<S1F, false>(a, ntp, st);
-      return res ? dispatch_ntp<S1, true>(a, ntp, st) : dispatch_ntp<S1, false>(a, ntp, st);
-    case S2: return res ? dispatch_ntp<S2, true>(a, ntp, st) : dispatch_ntp<S2, false>(a, ntp, st);
-    case T: return dispatch_ntp<T, false>(a, ntp, st);
-    case T3: return dispatch_ntp<T3, false>(a, ntp, st);
-    default: return dispatch_ntp<K4, false>(a, ntp, st);
+      if (w_flip) return dispatch_wg<S1F, false>(a, st);
+      return res ? dispatch_wg<S1, true>(a, st) : dispatch_wg<S1, false>(a, st);
+    case S2: return res ? dispatch_wg<S2, true>(a, st) : dispatch_wg<S2, false>(a, st);
+    default: return dispatch_wg<T, false>(a, st);
   }
 }

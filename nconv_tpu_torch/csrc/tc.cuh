@@ -1,6 +1,7 @@
 // The tensor-core primitives of the bf16 implicit-GEMM kernels (conv_tc.cu,
 // conv_chain_tc.cu, wgrad_tc.cu): ldmatrix (plain and transposing) and
-// mma.sync m16n8k16 bf16 -> f32 (cp.async is common.cuh's). A build may
+// mma.sync m16n8k16 bf16 -> f32 (cp.async is common.cuh's; Hopper's wgmma
+// and mbarriers are hopper.cuh's). A build may
 // predefine NCT_TC_PRIMITIVES and supply its own, as it may NCT_LAUNCH, to
 // run the kernels elsewhere than on the card.
 #pragma once
@@ -45,6 +46,7 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
 // (q, rest) = (i % n, i / n), one division at the start and none a step.
 struct Walk {
   int q, rest, dq, dr, nq;
+  Walk() = default;
   __device__ __forceinline__ Walk(int i, int nthr, int n)
       : q(i % n), rest(i / n), dq(nthr % n), dr(nthr / n), nq(n) {}
   __device__ __forceinline__ void next() {

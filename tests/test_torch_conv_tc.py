@@ -22,7 +22,9 @@ On the CPU:
 
 On the card (``cuda``-marked, skipped here): each tensor-core form against
 its plain version at ragged shapes within 5e-3 rel RMSE (bf16 output
-rounding), and the calls it refuses raise. JAX is imported only by the
+rounding): ragged last tiles, odd sizes at stride 2, parts of different
+widths and strided views, cout 8-128 with and without the shortcut, each
+transpose parity; and the calls it refuses raise. JAX is imported only by the
 tests that use it, so on the card this file runs as tests/test_torch_kernels.py
 does:
 
@@ -446,7 +448,10 @@ def test_conv_tc_matches_plain_version(card, chans, cout, stride, res, h, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chans,cout,h,w", [((1, 64), 64, 11, 38), ((1, 32), 32, 9, 19), ((16,), 16, 6, 10)])
+@pytest.mark.parametrize("chans,cout,h,w", [
+    ((1, 64), 64, 11, 38), ((1, 32), 32, 9, 19), ((16,), 16, 6, 10), ((33,), 32, 7, 21), ((3, 5), 8, 5, 13),
+    ((64,), 64, 13, 9),
+])
 def test_conv_transpose_tc_matches_plain_version(card, chans, cout, h, w):
     g = torch.Generator(device=card).manual_seed(sum(chans) + h)
     r = lambda *s: torch.randn(*s, generator=g, device=card)
@@ -458,6 +463,56 @@ def test_conv_transpose_tc_matches_plain_version(card, chans, cout, h, w):
     assert got.shape == (2, cout, 2 * h, 2 * w) and got.dtype == BF16
     assert _close(got, ops.conv_transpose4x4s2_plain(parts, wt, b))
     assert kernels.launch_counts()["conv_transpose_tc"] == 1 and kernels.launch_counts()["conv_transpose"] == 0
+    # each output parity (py, px) runs its own 2x2 taps and B block: held apart
+    want = ops.conv_transpose4x4s2_plain(parts, wt, b)
+    for py in (0, 1):
+        for px in (0, 1):
+            assert _close(got[..., py::2, px::2], want[..., py::2, px::2]), (py, px)
+
+
+def _stored_as(t, layout):
+    """``t`` (NCHW) held as ``layout`` names: "nchw" contiguous, "slice" a
+    channel slice of a wider tensor, "nhwc" channels-last storage read as
+    NCHW, "wstride" every other column of a tensor twice as wide; the last
+    two have no 16-byte rows (the kernel's element-wise staging)."""
+    if layout == "slice":
+        wide = torch.zeros(t.shape[0], t.shape[1] + 5, *t.shape[2:], device=t.device, dtype=t.dtype)
+        wide[:, 2:2 + t.shape[1]] = t
+        return wide[:, 2:2 + t.shape[1]]
+    if layout == "nhwc":
+        return t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    if layout == "wstride":
+        wide = torch.zeros(*t.shape[:3], 2 * t.shape[3], device=t.device, dtype=t.dtype)
+        wide[..., ::2] = t
+        return wide[..., ::2]
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chans,layouts,cout,stride,res,h,w", [
+    ((3,), ("nchw",), 8, 1, False, 21, 37), ((16,), ("nchw",), 16, 2, True, 23, 35),
+    ((72,), ("nchw",), 32, 1, True, 19, 70), ((72,), ("nchw",), 64, 2, False, 17, 41),
+    ((40, 24, 8), ("nchw", "slice", "nhwc"), 64, 1, True, 13, 29), ((16, 3), ("wstride", "nchw"), 32, 2, False, 15, 27),
+    ((32,), ("nchw",), 64, 1, False, 9, 100), ((32, 32), ("nchw", "nhwc"), 128, 1, False, 11, 19),
+    ((8,), ("nhwc",), 16, 1, True, 5, 7), ((64,), ("nchw",), 64, 2, True, 25, 33),
+    ((128,), ("nchw",), 64, 1, False, 10, 30), ((3,), ("nchw",), 64, 2, True, 31, 45),
+    ((32,), ("slice",), 32, 1, False, 3, 200), ((16,), ("nchw",), 8, 2, True, 1, 1),
+])
+def test_conv_tc_edges_match_plain_version(card, chans, layouts, cout, stride, res, h, w):
+    """Ragged last tiles (W not a multiple of 16), odd H and W at stride 2,
+    cin 3 / 16 / 72 / 128, parts of different widths, strided views (no
+    16-byte rows), cout 8-128 with and without the residual shortcut."""
+    g = torch.Generator(device=card).manual_seed(7 * sum(chans) + cout + h + w)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    parts = [_stored_as(r(2, c, h, w).to(BF16), lay) for c, lay in zip(chans, layouts)]
+    cin = sum(chans)
+    wt, b = r(cout, cin, 3, 3) * (9 * cin) ** -0.5, r(cout)
+    sc = r(cout, cin, 1, 1) * cin ** -0.5 if res else None
+    kernels.reset_launch_counts()
+    got = ops.conv3x3(parts, wt, b, stride=stride, relu=True, shortcut=sc)
+    want = ops.conv3x3_plain(parts, wt, b, stride=stride, relu=True, shortcut=sc)
+    assert got.shape == want.shape and _close(got, want)
+    assert kernels.launch_counts()["conv_tc"] == 1
 
 
 @pytest.mark.cuda

@@ -446,7 +446,9 @@ def test_conv_thin_u8_matches_plain_version(card, b, h, w, cout, res):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,cin,cmid,cout,h,w", [
     (2, 64, 64, 64, 44, 152), (1, 64, 32, 32, 19, 37), (2, 32, 32, 32, 17, 45), (1, 3, 32, 64, 9, 13),
-    (1, 80, 64, 32, 11, 24), (2, 32, 32, 16, 20, 36), (1, 24, 48, 40, 10, 30),
+    (1, 80, 64, 32, 11, 24), (2, 32, 32, 16, 20, 36), (1, 24, 48, 40, 10, 30), (1, 32, 32, 32, 23, 37),
+    (2, 64, 64, 64, 9, 19), (1, 64, 32, 64, 13, 70), (1, 32, 64, 32, 7, 100), (2, 16, 32, 32, 31, 33),
+    (1, 128, 32, 32, 5, 17),
 ])
 def test_conv_chain_tc_matches_plain_version(card, b, cin, cmid, cout, h, w):
     g = torch.Generator(device=card).manual_seed(cin + cmid + h)
