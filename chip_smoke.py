@@ -84,7 +84,10 @@ Phases (any failure raises and the script exits non-zero):
      the 4x4/s2 one, ``conv4x4s2_tc``, K3's 3x3/s2 form,
      ``conv_transpose3x3s2_tc``, and K6, ``wgrad_tc``; each but the 3x3/s2
      form also prints each call's distance, and its plain version's, from a
-     float64 plain run); (b) one bf16
+     float64 plain run; each also timed from CUDA-graph replays, no host
+     wrapper, beside its library call replayed the same way, and summed a
+     step per kernel: launches, single-launch ms, device ms, library device
+     ms, bound and share of bound on both clocks); (b) one bf16
      step, kernel path against plain path, gradients and the new BN running
      statistics also against phase 5's plain float64 path; (c) five steps
      of ``Trainer.fit``: loss finite and falling, within 2% of phase 5's f32
@@ -713,8 +716,10 @@ def check_call(key, g):
         del r64
     else:
         yardsticks_f64 = {}
-    # the tensor-core serving forms' device time without the host wrapper
-    device = dict(device_ms=graph_ms(kern)) if kind in TC_SERVING else {}
+    # the tensor-core forms' device time without the host wrapper, and their
+    # library call's on the same clock (graph replays)
+    device = dict(device_ms=graph_ms(kern), library_device_ms=graph_ms(library) if library else None) if (
+        kind in TC_SERVING + BF16_STEP_KERNELS) else {}
     return dict(
         kind=kind, err=err, abs_err=abs_err, bar=bar, out_dtype=out_dt, in_dtype=in_dt,
         shape=[list(t.shape) for t in k_out[:1]], **device,
@@ -892,16 +897,27 @@ def check_all(calls, g, label):
 
 
 def step_sums(calls, results, kinds):
-    """Per kernel kind: the sum over one step's calls of each time."""
+    """Per kernel kind: the launches of one step's calls and the sum over
+    them of each time; where every call has a graph-replayed device time
+    (the tensor-core forms), that and its library call's, and the share of
+    bound on both clocks."""
     sums = {}
     for kname in kinds:
         mine = [(k, v) for k, v in results.items() if k[0] == kname]
         sums[kname] = {f: sum(v[f] * calls[k] for k, v in mine) for f in ("ms", "plain_ms", "bound_ms")}
-        libs = [v["library_ms"] for _, v in mine]
-        sums[kname]["library_ms"] = None if None in libs else sum(v["library_ms"] * calls[k] for k, v in mine)
-    log("per train step: " + "; ".join(
-        f"{k} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} lib {v['library_ms']} bound {v['bound_ms']:.4f}"
-        for k, v in sums.items()))
+        sums[kname]["launches"] = sum(calls[k] for k, _ in mine)
+        for f in ("library_ms", "device_ms", "library_device_ms"):
+            vals = [v.get(f) for _, v in mine]
+            sums[kname][f] = None if None in vals else sum(v[f] * calls[k] for k, v in mine)
+    for k, v in sums.items():
+        if not v["launches"]:
+            continue
+        line = (f"per train step: {k} x{v['launches']} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
+                f"lib {v['library_ms']} bound {v['bound_ms']:.4f} share {v['bound_ms'] / v['ms']:.1%} of ms")
+        if v["device_ms"] is not None:
+            line += (f"; device {v['device_ms']:.4f} lib device {v['library_device_ms']} "
+                     f"share {v['bound_ms'] / v['device_ms']:.1%} of device")
+        log(line)
     return sums
 
 
@@ -2553,6 +2569,8 @@ def main() -> int:
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=bound,
             bound_by="operations" if ops_share > bound / 2 else "bytes",
             library_ms=None if any(v is None for v in libs) else tot("library_ms"),
+            # graph-replayed sums, where every call has them (the tensor-core forms)
+            **{f: tot(f) for f in ("device_ms", "library_device_ms") if all(r.get(f) is not None for _, r in calls)},
         ))
     log(json.dumps({"kernels": entries}))
     log(smi)

@@ -50,11 +50,12 @@
 //    staged in shared memory so the NCHW stores are 16-byte vectors.
 //
 // Hopper's mainloop (conv_wg_kernel) runs the serving forms, S1 and S2 with
-// and without the residual shortcut and T, and the stride-1 input cotangent
-// S1F. In the design it replaced (mma.sync m16n8k16 fed by ldmatrix for A
-// and B, every warp both loading and computing, the next tile prefetched
-// into registers, five block-wide barriers a tile) the loads and the
-// epilogue, not the MMAs, set the time; here they run beside the MMAs:
+// and without the residual shortcut and T, the stride-1 input cotangent S1F
+// and the 4x4/s2 input cotangent K4. In the design it replaced (mma.sync
+// m16n8k16 fed by ldmatrix for A and B, every warp both loading and
+// computing, the next tile prefetched into registers, five block-wide
+// barriers a tile) the loads and the epilogue, not the MMAs, set the time;
+// here they run beside the MMAs:
 //  * Two producer warpgroups stage input tiles into a ring of one or two
 //    stages, each guarded by a pair of mbarriers (full: every producer
 //    thread's arrival; empty: every consumer thread's, after its last
@@ -65,13 +66,14 @@
 //    units' loads in flight. With one producer warpgroup the staging bounded
 //    the frame's 32-channel convs on the H100, so there are two.
 //  * One or two consumer warpgroups each own 4 tile rows (64 GEMM rows) and
-//    run wgmma m64nNk16 (N = the padded cout, 32, 64 or 128): A from
-//    registers (ldmatrix at the per-lane tap addresses, warp w of the group
-//    rows 16 w .. 16 w + 15), B read straight from the resident weights
-//    through descriptors (K-major, hopper.cuh), so no warp spends ldmatrix
-//    issue on B. Each tap's partial sum starts afresh and joins the total
-//    with one rounded add; two taps are in flight (hopper.cuh, gemm_taps),
-//    since at these widths a tap's time is mostly the wgmma's latency.
+//    run wgmma m64nNk16 (N = the padded cout of the block's columns, 32, 40,
+//    64 or 128): A from registers (ldmatrix at the per-lane tap addresses,
+//    warp w of the group rows 16 w .. 16 w + 15), B read straight from the
+//    resident weights through descriptors (K-major, hopper.cuh), so no warp
+//    spends ldmatrix issue on B. Each tap's partial sum starts afresh and
+//    joins the total with one rounded add; two taps are in flight
+//    (hopper.cuh, gemm_taps), since at these widths a tap's time is mostly
+//    the wgmma's latency.
 //  * setmaxnreg leaves the producers 104-112 registers and gives the
 //    consumers 152 (two warpgroups, 512 threads) or 232 (one, 384 threads):
 //    the host checks the kernel's register count against that plan before
@@ -83,30 +85,30 @@
 //    (32 for a transpose conv) and kc <= 64, else one (4 rows); two stages
 //    where they fit beside the weights, else one; the first of (2, 2),
 //    (1, 2), (2, 1), (1, 1) (consumers, stages) inside a block's 227 KB.
-// The training forms T3 and K4 stay on the mma.sync mainloop of the design
-// before (conv_tc_kernel, fixed routing by mode). T3 ran on the Hopper
-// mainloop too (its parities as T's, with 1, 2, 2 and 4 taps), but on the
-// guided step's three calls it was no faster on the H100, so it stays. K4's
-// 16 taps at 65 -> 128 padded columns (262 KB of weights) do not fit a
-// block, and the Hopper mainloop has no column groups yet:
-//  * The 3x3/s2 transpose conv (mode T3) is the same over a 2x2 footprint:
-//    output (2i + py, 2j + px) reads input (i + ay, j + ax) at tap
-//    (py + 1 - 2 ay, px + 1 - 2 ax), so parity (0, 0) takes 1 tap, (0, 1)
-//    and (1, 0) take 2 and (1, 1) takes 4, the nine taps once each. All nine
-//    stay resident, one slot a tap: 157 KB at 128 -> 64 channels; with the
-//    4 x 16 tile's input and depth-to-space output stages (one buffer, 34
-//    KB) 191 KB, one block a SM. The warps of parity (1, 1) run 4 taps
-//    while those of (0, 0) run 1, and the block waits on the longest.
-//  * The 4x4/s2/p1 conv (mode K4) is mode S2's geometry with a 4x4
-//    footprint: an input tile of (TH - 1) * 2 + 4 rows by 34 pixels, 16 tap
-//    slots, a tap a row address at stride 2 (so, as in mode S2, a tap's 16
-//    rows sit two pixels apart and its A reads are 2-way bank-conflicted).
-//    Its 16 taps do not all fit resident at 64 -> 65 channels (128 columns:
-//    295 KB), so the columns run at a granularity of 16 and, where the
-//    weights and a 4 x 16 tile still exceed a block, split into column
-//    groups: each block holds one group's weights (65 -> two groups of 48:
-//    111 KB) and walks every tile for that group, so the input is read once
-//    per group.
+//  * Column groups (K4 only): a block holds the weights of one group of N
+//    output channels and walks every tile for it; blocks of one tile for
+//    all groups are neighbours in the grid, so the input's second read comes
+//    from L2. K4 is mode S2's geometry with a 4x4 footprint: an input tile
+//    of (TH - 1) * 2 + 4 rows by 34 pixels, 16 tap slots, a tap a row
+//    address at stride 2. Its 16 taps at 64 -> 65 channels would take 262 KB
+//    of resident weights at 128 columns, so the columns go in the fewest
+//    groups of at most 64 (32, 40 or 64 wide; 65 -> two groups of 40, 82 KB
+//    each; 33 -> one of 40) whose plan fits a block (dispatch_k4). On the
+//    guided step's three calls on the H100 this took K4 from 0.172 to about
+//    0.12 ms of device time (PERF.md), where the mma.sync form lost to
+//    F.conv2d.
+// The 3x3/s2 transpose conv (mode T3) stays on the mma.sync mainloop of the
+// design before (conv_tc_kernel, fixed routing by mode): on the Hopper
+// mainloop (its parities as T's, with 1, 2, 2 and 4 taps) it was no faster
+// on the guided step's three calls on the H100.
+//  * T3 is the same over a 2x2 footprint: output (2i + py, 2j + px) reads
+//    input (i + ay, j + ax) at tap (py + 1 - 2 ay, px + 1 - 2 ax), so parity
+//    (0, 0) takes 1 tap, (0, 1) and (1, 0) take 2 and (1, 1) takes 4, the
+//    nine taps once each. All nine stay resident, one slot a tap: 157 KB at
+//    128 -> 64 channels; with the 4 x 16 tile's input and depth-to-space
+//    output stages (one buffer, 34 KB) 191 KB, one block a SM. The warps of
+//    parity (1, 1) run 4 taps while those of (0, 0) run 1, and the block
+//    waits on the longest.
 //  * There mma.sync m16n8k16 bf16 -> f32 is fed by ldmatrix for A and B,
 //    every warp loads and computes, and the next tile is prefetched into
 //    registers while the MMAs run.
@@ -217,7 +219,7 @@ __device__ __forceinline__ void store_rows(const Args& a, const unsigned short* 
 }
 
 // ---------------------------------------------------------------------------
-// The mma.sync mainloop: modes T3 and K4
+// The mma.sync mainloop: mode T3
 // ---------------------------------------------------------------------------
 
 // acc[mt][nt] += A(tap) x B(slot) over all of K: two m-tiles (the warp's two
@@ -275,9 +277,9 @@ __device__ __forceinline__ void mma_tap(float (&acc)[2][2 * NTP][4], uint32_t a0
       for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
 }
 
-// MODE: T3 or K4. NTP: pairs of 8-column n-tiles per warp and column group.
-// WM: warps along M, two tile rows each (TH = 2 WM). The block has WM x WN
-// warps, WN = coutp / (16 NTP) column blocks (times 4 parities for T3).
+// MODE: T3. NTP: pairs of 8-column n-tiles per warp. WM: warps along M, two
+// tile rows each (TH = 2 WM). The block has WM x WN warps, WN = 4 x coutp /
+// (16 NTP) column blocks (a group of each output parity).
 template <int MODE, int NTP, int WM>
 __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   constexpr int TH = 2 * WM, NT = 2 * NTP;
@@ -293,34 +295,22 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   unsigned short* u = reinterpret_cast<unsigned short*>(bs + a.coutp);
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % WM, wn = warp / WM;
-  // the block's column group: output channels [cbase, cbase + ncol)
-  const int cbase = (blockIdx.x % a.groups) * a.coutp, ncol = min(a.coutp, a.cout - cbase);
-
   // -- weights and bias, once per block: zero, then scatter in read order
   for (int i = tid; i < nslots * a.coutp * a.cps / 8; i += nthr)
     reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < a.coutp; i += nthr)
-    bs[i] = (a.bias && i < ncol) ? load_w(a.bias, a.bias_bf16, cbase + i) : 0.f;
+  for (int i = tid; i < a.coutp; i += nthr) bs[i] = (a.bias && i < a.cout) ? load_w(a.bias, a.bias_bf16, i) : 0.f;
   __syncthreads();
   // each thread walks rows of the stored weight (the taps of one input and
   // one output channel, contiguous), rounding each tap to bf16 into its slot
   auto put = [&](int slot, int co, int k, const void* src, long long i) {
     ws[(slot * a.coutp + co) * a.cps + k] = __bfloat16_as_ushort(__float2bfloat16(load_w(src, a.w_bf16, i)));
   };
-  if constexpr (MODE == T3) {
+  {
     // (cin, cout, 3, 3): slot = ky * 3 + kx
     Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
     for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) put(tap, w.q, w.rest, a.w, 9LL * rr + tap);
-    }
-  } else {
-    // (cout, cin, 4, 4), the block's columns only: slot = ky * 4 + kx
-    Walk w(tid, nthr, a.cin);  // q: input channel, rest: the block's output channel
-    for (int rr = tid; rr < ncol * a.cin; rr += nthr, w.next()) {
-      const long long row = static_cast<long long>(cbase + w.rest) * a.cin + w.q;
-#pragma unroll
-      for (int tap = 0; tap < 16; ++tap) put(tap, w.rest, w.q, a.w, 16 * row + tap);
     }
   }
 
@@ -339,9 +329,9 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
   const uint32_t arow = S * Gm::IW * rowb, bpair = 16 * rowb, bslot = a.coutp * rowb;
 
   const int nq = a.kc / 4, units = Gm::IH * Gm::G * nq;
-  // the group's blocks walk every tile
-  const int tstep = gridDim.x / a.groups;
-  int t = blockIdx.x / a.groups;
+  // persistent blocks: every gridDim.x-th tile
+  const int tstep = gridDim.x;
+  int t = blockIdx.x;
   if (t >= a.tiles) return;
   {
     int b, oy0, ox0;
@@ -378,7 +368,7 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-    if constexpr (MODE == T3) {
+    {
       // input (i + ay, j + ax) is staged pixel (ay + 1, ax + 1) from the warp's own
       const int py = par >> 1, px = par & 1;
 #pragma unroll 1
@@ -387,11 +377,6 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
         for (int ax = 0; ax <= px; ++ax)
           mma_tap<NTP>(acc, a_lane + ((ay + 1) * Gm::IW + ax + 1) * rowb, arow,
                        b_lane + ((py + 1 - 2 * ay) * 3 + px + 1 - 2 * ax) * bslot, bpair, kchunks);
-    } else {
-#pragma unroll 1
-      for (int tap = 0; tap < 16; ++tap)
-        mma_tap<NTP>(acc, a_lane + ((tap / 4) * Gm::IW + tap % 4) * rowb, arow, b_lane + tap * bslot,
-                     bpair, kchunks);
     }
     __syncthreads();  // every warp is done with the input tile
 
@@ -408,15 +393,12 @@ __global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
             const int px_ = gid + (e >> 1) * 8, col = c0 + n * 8 + cq + (e & 1), r = 2 * wm + m;
             float v = acc[m][n][e] + bs[col];
             if (a.relu) v = fmaxf(v, 0.f);
-            if constexpr (transposed(MODE))
-              st[col * Gm::OS + (2 * r + (par >> 1)) * Gm::OW + 2 * px_ + (par & 1)] = __float2bfloat16(v);
-            else
-              st[col * Gm::OS + r * Gm::OW + px_] = __float2bfloat16(v);
+            st[col * Gm::OS + (2 * r + (par >> 1)) * Gm::OW + 2 * px_ + (par & 1)] = __float2bfloat16(v);
           }
     }
     __syncthreads();
-    store_rows<Gm::OH, Gm::OW>(a, reinterpret_cast<const unsigned short*>(u), Gm::OS, ncol, b, cbase,
-                               transposed(MODE) ? 2 * oy0 : oy0, 1, transposed(MODE) ? 2 * ox0 : ox0, tid, nthr);
+    store_rows<Gm::OH, Gm::OW>(a, reinterpret_cast<const unsigned short*>(u), Gm::OS, a.cout, b, 0, 2 * oy0, 1,
+                               2 * ox0, tid, nthr);
     __syncthreads();  // the stage is read out
 
     if (tn < a.tiles) {
@@ -449,27 +431,19 @@ int launch(Args& a, int wn, cudaStream_t st) {
   void (*k)(const Args) = conv_tc_kernel<MODE, NTP, WM>;
   const int threads = 32 * WM * wn;
   const size_t smem = smem_bytes(MODE, TH, a.coutp, a.cps);
-  const int gy = transposed(MODE) ? a.H : a.ho, gx = transposed(MODE) ? a.W : a.wo;
-  a.tiles_x = (gx + TW - 1) / TW;
-  a.tiles_y = (gy + TH - 1) / TH;
+  a.tiles_x = (a.W + TW - 1) / TW;
+  a.tiles_y = (a.H + TH - 1) / TH;
   a.tiles = a.B * a.tiles_x * a.tiles_y;
   int resident = 0;
   if (const int e = resident_blocks(k, threads, smem, resident)) return e;
-  // as many blocks as fit, the same number for every column group
-  const int fit = resident / a.groups > 1 ? resident / a.groups : 1;
-  const int per_group = a.tiles < fit ? a.tiles : fit;
-  NCT_LAUNCH(k, dim3(per_group * a.groups), dim3(threads), smem, st, a);
+  NCT_LAUNCH(k, dim3(a.tiles < resident ? a.tiles : resident), dim3(threads), smem, st, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The larger tile (WM 4, else 2) whose warps, weights and input tile fit a
-// block (a transpose conv has at least 4 column groups, so WM 2).
+// WM 2 (a transpose conv has 4 column groups, one a parity), where the
+// weights and the input tile fit a block.
 template <int MODE, int NTP>
 int launch_fit(Args& a, int wn, cudaStream_t st) {
-  if constexpr (!transposed(MODE)) {
-    if (4 * wn * 32 <= THREADS && smem_bytes(MODE, 8, a.coutp, a.cps) <= MAX_SMEM)
-      return launch<MODE, NTP, 4>(a, wn, st);
-  }
   if (2 * wn * 32 <= THREADS && smem_bytes(MODE, 4, a.coutp, a.cps) <= MAX_SMEM)
     return launch<MODE, NTP, 2>(a, wn, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -477,36 +451,13 @@ int launch_fit(Args& a, int wn, cudaStream_t st) {
 
 template <int MODE>
 int dispatch_ntp(Args& a, int ntp, cudaStream_t st) {
-  const int wnc = a.coutp / (16 * ntp), wn = transposed(MODE) ? 4 * wnc : wnc;
+  const int wn = 4 * (a.coutp / (16 * ntp));
   switch (ntp) {
     case 1: return launch_fit<MODE, 1>(a, wn, st);
     case 2: return launch_fit<MODE, 2>(a, wn, st);
-  }
-  if constexpr (MODE == K4) {
-    if (ntp == 3) return launch_fit<MODE, 3>(a, wn, st);
-  } else {
-    if (ntp == 4) return launch_fit<MODE, 4>(a, wn, st);
+    case 4: return launch_fit<MODE, 4>(a, wn, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Mode K4's columns: cout at a granularity of 16 (33 -> 48, not 64: faster
-// on the guided net's three calls than 32, measured on the H100), split
-// into as few groups as leave each group at most 128 columns in at most 4
-// warp columns, and its weights and a 4 x 16 tile inside a block; the pairs
-// per warp: 3 where they divide the group's, else 2, else 1.
-inline int k4_ntp(int coutp) {
-  const int cp = coutp / 16;
-  return cp % 3 == 0 ? 3 : cp % 2 == 0 ? 2 : 1;
-}
-inline void k4_columns(Args& a) {
-  for (int g = 1;; ++g) {
-    a.coutp = ((a.cout + g - 1) / g + 15) / 16 * 16;
-    a.groups = (a.cout + a.coutp - 1) / a.coutp;
-    if (a.coutp == 16 || (a.coutp <= 128 && a.coutp / (16 * k4_ntp(a.coutp)) <= 4 &&
-                          smem_bytes(K4, 4, a.coutp, a.cps) <= MAX_SMEM))
-      return;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -594,10 +545,14 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
   const uint32_t bars = smem_u32(smem + L.bars);
   const hop::Ring ring{bars, bars + 32, a.stages};
   const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  // the block's column group: output channels [cbase, cbase + ncol); its
+  // blocks walk every tile (K4 only has more than one group)
+  const int cbase = (blockIdx.x % a.groups) * N, ncol = min(N, a.cout - cbase);
+  const int t0 = blockIdx.x / a.groups, tstep = gridDim.x / a.groups;
 
   // -- weights (K-major, rounded to bf16), bias and barriers, once per block
   for (int i = tid; i < nslots * N * a.kc / 8; i += nthr) reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < N; i += nthr) bs[i] = (a.bias && i < a.cout) ? load_w(a.bias, a.bias_bf16, i) : 0.f;
+  for (int i = tid; i < N; i += nthr) bs[i] = (a.bias && i < ncol) ? load_w(a.bias, a.bias_bf16, cbase + i) : 0.f;
   if (tid == 0) {
     ring.init(128 * PW, 128 * CW);
     hop::mbar_init_fence();
@@ -618,6 +573,14 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
         const int py = (3 - ky) & 1, px = (3 - kx) & 1, ay = (3 - ky) >> 1, ax = (3 - kx) >> 1;
         put((py * 2 + px) * 4 + ay * 2 + ax, w.q, w.rest, a.w, 16LL * rr + kk);
       }
+    }
+  } else if constexpr (MODE == K4) {
+    // (cout, cin, 4, 4), the block's columns only: slot = ky * 4 + kx
+    Walk w(tid, nthr, a.cin);  // q: input channel, rest: the block's output channel
+    for (int rr = tid; rr < ncol * a.cin; rr += nthr, w.next()) {
+      const long long row = static_cast<long long>(cbase + w.rest) * a.cin + w.q;
+#pragma unroll
+      for (int tap = 0; tap < 16; ++tap) put(tap, w.rest, w.q, a.w, 16 * row + tap);
     }
   } else if constexpr (MODE == S1F) {
     // the stride-1 conv's weight (cin, cout, 3, 3), flipped: slot = (2 - ky) * 3 + 2 - kx
@@ -641,7 +604,7 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
     // -- the producer warpgroups: the block's tiles, one stage each, in turn
     hop::setmaxnreg_dec<P::PREG>();
     int i = 0;
-    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
+    for (int t = t0; t < a.tiles; t += tstep, ++i) {
       int b, oy0, ox0;
       tile_origin<MODE, TH>(a, t, b, oy0, ox0);
       ring.acquire(i);
@@ -665,7 +628,7 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
   unsigned short* st = reinterpret_cast<unsigned short*>(smem + L.out + c * L.out_bytes);
   float acc[NR], accs[RES ? NR : 1];
   int i = 0;
-  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
+  for (int t = t0; t < a.tiles; t += tstep, ++i) {
     int b, oy0, ox0;
     tile_origin<MODE, TH>(a, t, b, oy0, ox0);
     ring.take(i);
@@ -698,9 +661,10 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
         hop::named_sync(1 + c, 128);  // the stage is read out
       }
     } else {
-      // tap t = (ky, kx) = (t / 3, t % 3)
+      // tap t = (ky, kx) = (t / k, t % k)
+      constexpr int KS = ksize(MODE);
       hop::gemm_taps<N, KMAX>(
-          acc, 9, kch, N, [&](int t) { return ab + ((t / 3) * Gm::IW + t % 3) * rowb; },
+          acc, KS * KS, kch, N, [&](int t) { return ab + ((t / KS) * Gm::IW + t % KS) * rowb; },
           [&](int t) { return hop::desc_at(bd, t * slot_b); }, [&] {
             if constexpr (!RES) ring.release(i);  // the tile's last read of the stage
           });
@@ -722,7 +686,7 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
           st[col * OS + w * OW + x] = __bfloat16_as_ushort(__float2bfloat16(v));
         }
       hop::named_sync(1 + c, 128);
-      store_rows<4, OW>(a, st, OS, a.cout, b, 0, oy0 + 4 * c, 1, ox0, ctid, 128);
+      store_rows<4, OW>(a, st, OS, ncol, b, cbase, oy0 + 4 * c, 1, ox0, ctid, 128);
       hop::named_sync(1 + c, 128);  // the stage is read out
     }
   }
@@ -762,7 +726,9 @@ int launch_wg(Args& a, size_t smem, cudaStream_t st) {
   a.tiles = a.B * a.tiles_x * a.tiles_y;
   int resident = 0;
   if (const int e = resident_blocks(k, P::THREADS, smem, resident)) return e;
-  NCT_LAUNCH(k, dim3(a.tiles < resident ? a.tiles : resident), dim3(P::THREADS), smem, st, a);
+  // as many blocks as fit, the same number for every column group
+  const int fit = resident / a.groups > 1 ? resident / a.groups : 1;
+  NCT_LAUNCH(k, dim3((a.tiles < fit ? a.tiles : fit) * a.groups), dim3(P::THREADS), smem, st, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -783,8 +749,28 @@ int dispatch_wg(Args& a, cudaStream_t st) {
     case 32: return launch_wg_cw<MODE, RES, 32>(a, cw, smem, st);
     case 64: return launch_wg_cw<MODE, RES, 64>(a, cw, smem, st);
   }
-  if constexpr (!RES && !transposed(MODE)) {
+  if constexpr (MODE == K4) {
+    if (a.coutp == 40) return launch_wg_cw<MODE, RES, 40>(a, cw, smem, st);
+  }
+  if constexpr (!RES && !transposed(MODE) && MODE != K4) {
     if (a.coutp == 128) return launch_wg_cw<MODE, RES, 128>(a, cw, smem, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Mode K4's columns: the fewest column groups whose width (cout / groups,
+// rounded up to 32, 40 or 64 columns) leaves a plan inside a block; each
+// block holds one group's weights and walks every tile for it.
+inline int dispatch_k4(Args& a, cudaStream_t st) {
+  for (int g = 1; g <= a.cout; ++g) {
+    const int w = (a.cout + g - 1) / g;
+    if (w > 64) continue;
+    a.coutp = w <= 32 ? 32 : w <= 40 ? 40 : 64;
+    a.groups = (a.cout + a.coutp - 1) / a.coutp;
+    int cw = 0;
+    size_t smem = 0;
+    if (wg_plan(a, K4, false, cw, smem)) return dispatch_wg<K4, false>(a, st);
+    if (a.coutp == 32) break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -806,7 +792,7 @@ int dispatch_wg(Args& a, cudaStream_t st) {
 // transpose convs; any for mode 4, in column groups) where the weights and
 // the input tiles fit in shared memory (modes 0-2 up to cin 128); returns
 // cudaErrorInvalidValue for any other call, else cudaGetLastError() after
-// the launch. Modes 0-2 run Hopper's mainloop, 3 and 4 the mma.sync one.
+// the launch. Modes 0-2 and 4 run Hopper's mainloop, 3 the mma.sync one.
 extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_meta, int nparts,
                            int B, int H, int W, int cin, int cout, int mode, const void* w,
                            int w_dtype, int w_flip, const void* wsc, const void* bias, int bias_dtype,
@@ -842,16 +828,14 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   a.out = static_cast<__nv_bfloat16*>(out);
   a.out_vec = reinterpret_cast<uintptr_t>(out) % 16 == 0 && a.wo % 8 == 0;
   auto st = static_cast<cudaStream_t>(stream);
-  if (mode == T3 || mode == K4) {
-    const int gran = cout <= 16 ? 16 : cout <= 64 ? 32 : 64;
+  if (mode == T3) {
+    if (cout > 64) return static_cast<int>(cudaErrorInvalidValue);
+    const int gran = cout <= 16 ? 16 : 32;
     a.coutp = (cout + gran - 1) / gran * gran;
-    if (mode == K4) k4_columns(a);
-    // column pairs per warp: a parity's group one warp wide (T3); K4's by
-    // its column groups
-    const int ntp = mode == K4 ? k4_ntp(a.coutp) : (a.coutp / 16 > 4 ? 4 : a.coutp / 16);
-    if (a.coutp > (mode == T3 ? 64 : 128)) return static_cast<int>(cudaErrorInvalidValue);
-    return mode == T3 ? dispatch_ntp<T3>(a, ntp, st) : dispatch_ntp<K4>(a, ntp, st);
+    // column pairs per warp: a parity's group one warp wide
+    return dispatch_ntp<T3>(a, a.coutp / 16 > 4 ? 4 : a.coutp / 16, st);
   }
+  if (mode == K4) return dispatch_k4(a, st);
   a.coutp = cout <= 32 ? 32 : cout <= 64 ? 64 : 128;
   if (cout > (mode == T || res ? 64 : 128)) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {

@@ -67,7 +67,7 @@ _SIGNATURES = {
     "nct_wgrad": [P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
     "nct_wgrad_slices": [I, I, I, I, I],
     "nct_wgrad_tc": [P, P, I, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P],
-    "nct_wgrad_tc_slices": [I, I, I, I, I, I],
+    "nct_wgrad_tc_slices": [I, I, I, I, I, I, I],
 }
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}

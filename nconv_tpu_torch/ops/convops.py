@@ -753,7 +753,8 @@ def _wgrad_tc_kernel(x_parts, g_parts, ksize, stride, padding):
     kernels.no_graph("wgrad_tc", *x_parts, *g_parts)
     b, h, w, ho, wo, cin, m = _check_wgrad(x_parts, g_parts, ksize, stride, padding, torch.bfloat16,
                                            "K6's tensor-core form")
-    part = torch.empty((kernels.lib().nct_wgrad_tc_slices(b, ho, wo, m, cin, ksize), m, cin * ksize * ksize),
+    part = torch.empty((kernels.lib().nct_wgrad_tc_slices(b, ho, wo, m, cin, ksize, stride), m,
+                        cin * ksize * ksize),
                        device=x_parts[0].device)
     out = torch.empty((m, cin, ksize, ksize), device=x_parts[0].device)
     gptrs, gmeta = kernels.part_args(g_parts, [False] * len(g_parts))

@@ -143,23 +143,34 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,stride,m,b,h,w", [
-    (3, 1, 1, 2, 37, 150), (3, 1, 40, 1, 20, 36), (3, 2, 128, 2, 37, 150), (3, 1, 65, 1, 44, 152),
-    (4, 2, 33, 2, 19, 37), (4, 2, 65, 1, 20, 36),
+@pytest.mark.parametrize("k,stride,m,xc,b,h,w", [
+    # M 1 to 130 (wgmma widths 8, 32, 40, 64, 72, 128 and two column groups),
+    # x as parts, the last a channel-offset view
+    (3, 1, 1, (5, 67), 2, 37, 150), (3, 1, 40, (5, 67), 1, 20, 36), (3, 2, 128, (5, 67), 2, 37, 150),
+    (3, 1, 65, (5, 67), 1, 44, 152), (3, 1, 33, (32,), 1, 9, 40), (3, 1, 130, (16, 16), 1, 12, 33),
+    # cin 1 and 3: D's rows mostly padding
+    (3, 1, 32, (1,), 2, 13, 70), (3, 1, 64, (3,), 1, 22, 76), (3, 2, 64, (1,), 1, 23, 61),
+    # the consumers' m-tiles: 1 to 5 a warpgroup, several blocks over them
+    (3, 1, 32, (32, 32), 1, 16, 64), (3, 1, 8, (64, 64, 16), 1, 11, 40), (3, 1, 64, (64, 64), 1, 22, 76),
+    (3, 2, 128, (64,), 1, 22, 76),
+    # 4x4/s2, roles swapped: x the transpose conv's output cotangent (even
+    # and odd sizes: both column parities ragged), g its input parts
+    (4, 2, 33, (16, 23), 2, 19, 37), (4, 2, 65, (16, 23), 1, 20, 36), (4, 2, 65, (64,), 1, 11, 38),
+    (4, 2, 2, (8,), 1, 5, 9),
 ])
-def test_wgrad_tc_matches_plain_version(card, k, stride, m, b, h, w):
-    """K6's tensor-core form on ragged tiles, x as two parts (the second a
-    channel-offset view), M from 1 to 128; at k = 4 with the roles swapped
-    (x the transpose conv's output cotangent, g its input parts [depth |
-    features]). A repeat is bitwise equal."""
-    gen = torch.Generator(device=card).manual_seed(k * m + h)
+def test_wgrad_tc_matches_plain_version(card, k, stride, m, xc, b, h, w):
+    """K6's tensor-core form on ragged tiles against its plain version within
+    1e-5; rows that are not 16-byte aligned (odd widths, a channel-offset
+    view) and aligned ones. A repeat is bitwise equal."""
+    gen = torch.Generator(device=card).manual_seed(k * m + h + sum(xc))
     r = lambda *s: torch.randn(*s, generator=gen, device=card).to(BF16)
     if k == 4:
-        x = [r(b, 16, 2 * h, 2 * w), r(b, 30, 2 * h, 2 * w)[:, 7:]]
-        gp = [r(b, 1, h, w), r(b, m - 1, h, w)]
+        hx, wx = 2 * h, 2 * w
+        gp = [r(b, 1, h, w), r(b, m - 1, h, w)] if m > 1 else [r(b, 1, h, w)]
     else:
-        x = [r(b, 5, h, w), r(b, 70, h, w)[:, 3:]]
+        hx, wx = h, w
         gp = [r(b, m, (h - 1) // stride + 1, (w - 1) // stride + 1)]
+    x = [r(b, c, hx, wx) for c in xc[:-1]] + [r(b, xc[-1] + 3, hx, wx)[:, 3:]]
     kernels.reset_launch_counts()
     got = ops.conv2d_wgrad(x, gp, k, stride=stride, padding=1)
     want = ops.conv2d_weight_grad_plain(x, gp, k, 1, stride=stride)
@@ -170,11 +181,14 @@ def test_wgrad_tc_matches_plain_version(card, k, stride, m, b, h, w):
 
 
 @pytest.mark.cuda
-def test_wgrad_tc_is_bitwise_repeatable_at_full_resolution(card):
-    """Many slices and a second pass: the same shape gives the same bits."""
+@pytest.mark.parametrize("m,cin,h,w", [(64, 64, 176, 608), (32, 32, 352, 1216)])
+def test_wgrad_tc_is_bitwise_repeatable_at_full_resolution(card, m, cin, h, w):
+    """Many slices and a second pass: the same shape gives the same bits,
+    within 1e-5 of the plain version (the guided step's 176x608 64 x 64 call
+    and its full-resolution 32 x 32 one)."""
     gen = torch.Generator(device=card).manual_seed(9)
-    x = [torch.randn(1, 64, 176, 608, generator=gen, device=card).to(BF16)]
-    gp = [torch.randn(1, 64, 176, 608, generator=gen, device=card).to(BF16)]
+    x = [torch.randn(1, cin, h, w, generator=gen, device=card).to(BF16)]
+    gp = [torch.randn(1, m, h, w, generator=gen, device=card).to(BF16)]
     first = ops.conv2d_wgrad(x, gp, 3, stride=1, padding=1)
     for _ in range(3):
         assert torch.equal(first, ops.conv2d_wgrad(x, gp, 3, stride=1, padding=1))

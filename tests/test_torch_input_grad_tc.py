@@ -216,10 +216,15 @@ def test_conv_input_grad_tc_matches_plain_version(card, cg, co, b, h, w):
 @pytest.mark.parametrize("cg,co,b,h,w", [
     (32, 33, 1, 38, 150), (64, 65, 2, 19, 37), (64, 65, 1, 88, 304), (16, 9, 1, 7, 16), (8, 1, 1, 5, 4),
     (32, 100, 1, 12, 40),
+    # the guided step's three calls, H and W cut down
+    (32, 33, 1, 88, 304), (64, 65, 1, 44, 152), (64, 65, 1, 22, 76),
+    # column-group edges: one group of 32, 40 and 64 columns, two of 40, three of 64
+    (64, 32, 1, 18, 66), (64, 40, 1, 18, 66), (64, 41, 1, 18, 66), (64, 64, 1, 18, 66), (32, 80, 1, 18, 66),
+    (16, 129, 1, 10, 34),
 ])
 def test_conv4x4s2_tc_matches_plain_version(card, cg, co, b, h, w):
-    """Output 1 to 100 channels (33 and 65: one and two column groups of
-    48), odd H and W, a 2 x 2 output."""
+    """Output 1 to 129 channels (33: one column group of 40, 65: two of 40,
+    100 and 129: groups of 64), odd H and W, a 2 x 2 output."""
     gen = torch.Generator(device=card).manual_seed(cg + co + h)
     cot = torch.randn(b, cg, h, w, generator=gen, device=card).to(BF16)
     wt = (torch.randn(co, cg, 4, 4, generator=gen, device=card) * (4 * co) ** -0.5).to(BF16)
