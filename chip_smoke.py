@@ -262,6 +262,10 @@ def log(*a):
     print(*a, flush=True)
 
 
+def _ms(v):
+    return "-" if v is None else f"{v:.4f}"
+
+
 def rel_rmse(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -394,9 +398,9 @@ class Recorder:
             self.note(("wgrad", tuple(map(_sig, xs)), tuple(map(_sig, gs)), ksize, stride, padding))
             return real["wg"](xs, gs, ksize, stride, padding)
 
-        def t3c(x, w):
-            self.note(("conv_transpose3x3s2_tc", _sig(x), _sig(w)))
-            return real["t3c"](x, w)
+        def t3c(x, w, *centre):  # centre: the trailing channels whose weights are centre-only
+            self.note(("conv_transpose3x3s2_tc", _sig(x), _sig(w), centre[0] if centre else 0))
+            return real["t3c"](x, w, *centre)
 
         def wgc(xs, gs, ksize, stride, padding):
             self.note(("wgrad_tc", tuple(map(_sig, xs)), tuple(map(_sig, gs)), ksize, stride, padding))
@@ -612,12 +616,15 @@ def check_call(key, g):
         macs_per_out = cout_t * 16
         inputs = [x, w]
     elif kind in ("conv_transpose3x3s2", "conv_transpose3x3s2_tc"):
-        _, xsig, wsig = key
+        _, xsig, wsig, *rest = key
+        centre = rest[0] if rest else 0
         x = _rand(xsig, g)
         cin = wsig[0][0]
         w = _rand(wsig, g, scale=(9 * cin) ** -0.5)
+        if centre:  # the residual backward's stacking: the trailing rows a 1x1 kernel at the centre tap
+            w[cin - centre:] *= F.pad(torch.ones(1, 1, 1, 1, device="cuda", dtype=w.dtype), (1, 1, 1, 1))
         wrapper = convops._conv_transpose3x3s2_tc_kernel if kind.endswith("_tc") else convops._conv_transpose3x3s2_kernel
-        kern = lambda: wrapper(x, w)
+        kern = (lambda: wrapper(x, w, centre)) if centre else (lambda: wrapper(x, w))
         plain = lambda: convops.conv3x3s2_input_grad_plain(x, w)
         library = lambda: F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1)
         out_dt = in_dt = xsig[1]
@@ -716,10 +723,9 @@ def check_call(key, g):
         del r64
     else:
         yardsticks_f64 = {}
-    # the tensor-core forms' device time without the host wrapper, and their
-    # library call's on the same clock (graph replays)
-    device = dict(device_ms=graph_ms(kern), library_device_ms=graph_ms(library) if library else None) if (
-        kind in TC_SERVING + BF16_STEP_KERNELS) else {}
+    # every form's device time without the host wrapper, and its library
+    # call's on the same clock (graph replays)
+    device = dict(device_ms=graph_ms(kern), library_device_ms=graph_ms(library) if library else None)
     return dict(
         kind=kind, err=err, abs_err=abs_err, bar=bar, out_dtype=out_dt, in_dtype=in_dt,
         shape=[list(t.shape) for t in k_out[:1]], **device,
@@ -886,7 +892,8 @@ def check_all(calls, g, label):
             f"rel_rmse {res['err']:.2e} (bar {res['bar']:.0e}) max_abs {res['abs_err']:.2e} "
             f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
             f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
-            f"bound {res['bound_ms']:.4f} ({res['bound_by']})"
+            f"bound {res['bound_ms']:.4f} ({res['bound_by']}) device {res['device_ms']:.4f} "
+            f"lib device {_ms(res['library_device_ms'])}"
             + (f" vs f64 {res['f64_err']:.4e} (plain vs f64 {res['plain_f64_err']:.4e})" if "f64_err" in res else "")
             + (f" bitwise repeat {res['bitwise_repeat']}" if "bitwise_repeat" in res else ""))
         if not ok:
@@ -2469,7 +2476,8 @@ def main() -> int:
                 f"x{count} rel_rmse {res['err']:.2e} (bar {res['bar']:.0e}) max_abs {res['abs_err']:.2e} "
                 f"ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
                 f"lib {res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} "
-                f"bound {res['bound_ms']:.4f} ({res['bound_by']})"
+                f"bound {res['bound_ms']:.4f} ({res['bound_by']}) device {res['device_ms']:.4f} "
+                f"lib device {_ms(res['library_device_ms'])}"
                 + "".join(f" {y[:-3]} {res[y]:.4f}" for y in YARDSTICKS if y in res))
             if not ok:
                 failures.append((key, res["err"]))
@@ -2479,7 +2487,8 @@ def main() -> int:
     for kname, sched in (("conv_thin", "mixed"), ("conv_chain_tc", "mixed"), ("conv_chain", "f32")):
         mine = [(k, r) for k, r in results.items() if k[0] == kname and k in rec[sched]]
         tot = {f: sum(r[f] * rec[sched][k] for k, r in mine)
-               for f in ("ms", "plain_ms", "bound_ms", "library_ms", *YARDSTICKS) if all(f in r and r[f] is not None
+               for f in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "library_device_ms", *YARDSTICKS)
+               if all(f in r and r[f] is not None
                                                                                          for _, r in mine)}
         log(f"per {sched} frame {kname}: " + ", ".join(f"{f} {v:.4f}" for f, v in tot.items())
             + f"; share of bound {tot['bound_ms'] / tot['ms']:.1%}")
@@ -2569,7 +2578,7 @@ def main() -> int:
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=bound,
             bound_by="operations" if ops_share > bound / 2 else "bytes",
             library_ms=None if any(v is None for v in libs) else tot("library_ms"),
-            # graph-replayed sums, where every call has them (the tensor-core forms)
+            # graph-replayed sums (library: where every call has one)
             **{f: tot(f) for f in ("device_ms", "library_device_ms") if all(r.get(f) is not None for _, r in calls)},
         ))
     log(json.dumps({"kernels": entries}))

@@ -11,6 +11,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <mutex>
 #include <vector>
@@ -97,6 +98,28 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 __device__ __forceinline__ float load_w(const void* p, int bf16, long long i) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
+}
+
+// Three bf16 terms (raw bits, hi first) whose sum is the finite f32 v
+// exactly: hi is v cut to bf16's 8 significant bits (toward zero), mid the
+// remainder cut the same way, lo what is left, at most 8 significant bits
+// (each difference is exact in f32). A bf16 tensor-core product of an exact
+// bf16 operand with the three terms, summed in f32, is the f32 product.
+__host__ __device__ inline void split3(float v, unsigned short (&t)[3]) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  const uint32_t h = u & 0xffff0000u;
+  float f;
+  memcpy(&f, &h, 4);
+  const float r = v - f;
+  memcpy(&u, &r, 4);
+  const uint32_t m = u & 0xffff0000u;
+  memcpy(&f, &m, 4);
+  const float l = r - f;
+  memcpy(&u, &l, 4);
+  t[0] = static_cast<unsigned short>(h >> 16);
+  t[1] = static_cast<unsigned short>(m >> 16);
+  t[2] = static_cast<unsigned short>(u >> 16);
 }
 
 // The value an f32 takes after a round trip through storage type T.

@@ -23,11 +23,12 @@
 // input value over (cin + cout) * 2 bytes, at the card's bf16 ridge (~295
 // FLOP/byte), so both the bytes and the tensor-core issue matter, and a
 // design that reads its input once per few output channels (as conv.cu
-// does) is bound by re-reads. Both mainloops below share one geometry:
-//  * GEMM: M = the output pixels of a tile (rows of TW = 16 along W), N =
-//    every output channel (the residual form's shortcut is a second
-//    accumulator that runs the centre tap only; a transpose conv runs one
-//    output parity at a time), K = taps x cin.
+// does) is bound by re-reads. So every mode runs one implicit-GEMM design
+// on Hopper's warpgroup MMAs (conv_wg_kernel):
+//  * GEMM: M = the output pixels of a tile (rows of TW = 16 along W; a
+//    transpose conv tiles its input grid), N = every output channel of the
+//    block's column group (the residual form's shortcut is a second
+//    accumulator that runs the centre tap only), K = taps x cin.
 //  * The input tile is staged once, channels-last ([pixel][channel], rows
 //    padded by 8 channels so ldmatrix is conflict-free), transposed on the
 //    way in from NCHW: 16-byte vectors along W where a part allows it,
@@ -35,90 +36,70 @@
 //    (ky, kx) at stride 1 or 2 is then just a per-lane row address: no
 //    im2col, no shifted copies. Each input byte leaves HBM once, plus the
 //    halo.
-//  * One block computes all output channels of its tile, and holds all its
-//    weights resident in shared memory as bf16 (rounded to nearest even as
-//    it stages them from their stored type, f32 or bf16), staged once:
-//    blocks are persistent (as many as fit on the card) and loop over tiles.
-//  * The transpose conv is a 3x3-footprint conv over its input grid: output
-//    parity (py, px) takes 2x2 of the taps (dy in {-1, 0} for py = 0, {0, 1}
-//    for py = 1, the same for x), and the epilogue stores depth-to-space.
-//  * The tensor cores truncate their f32 sums (a bias toward zero at every
-//    MMA), so each tap sums into registers of its own that join the total
-//    with one rounded add: the bias stays that of kc / 16 MMAs, not of 9 x
-//    that, and bf16 outputs round as an f32 sum would round them.
-//  * Epilogue: bias in f32, ReLU, the shortcut added, one rounding to bf16,
-//    staged in shared memory so the NCHW stores are 16-byte vectors.
-//
-// Hopper's mainloop (conv_wg_kernel) runs the serving forms, S1 and S2 with
-// and without the residual shortcut and T, the stride-1 input cotangent S1F
-// and the 4x4/s2 input cotangent K4. In the design it replaced (mma.sync
-// m16n8k16 fed by ldmatrix for A and B, every warp both loading and
-// computing, the next tile prefetched into registers, five block-wide
-// barriers a tile) the loads and the epilogue, not the MMAs, set the time;
-// here they run beside the MMAs:
+//  * A block holds the weights of its columns resident in shared memory as
+//    bf16 (rounded to nearest even as it stages them from their stored type,
+//    f32 or bf16), staged once: blocks are persistent (one an SM) and loop
+//    over tiles.
 //  * Two producer warpgroups stage input tiles into a ring of one or two
 //    stages, each guarded by a pair of mbarriers (full: every producer
 //    thread's arrival; empty: every consumer thread's, after its last
 //    ldmatrix of the tile, so the next tile loads during the last tap's
 //    MMAs and the epilogue). Neighbouring producer threads read neighbouring
-//    16-byte pieces of a channel row (whole 32-byte sectors, where
-//    neighbouring channel quads touched 32 sectors a load) and keep four
-//    units' loads in flight. With one producer warpgroup the staging bounded
-//    the frame's 32-channel convs on the H100, so there are two.
+//    16-byte pieces of a channel row and keep four units' loads in flight.
 //  * One or two consumer warpgroups each own 4 tile rows (64 GEMM rows) and
-//    run wgmma m64nNk16 (N = the padded cout of the block's columns, 32, 40,
-//    64 or 128): A from registers (ldmatrix at the per-lane tap addresses,
-//    warp w of the group rows 16 w .. 16 w + 15), B read straight from the
-//    resident weights through descriptors (K-major, hopper.cuh), so no warp
-//    spends ldmatrix issue on B. Each tap's partial sum starts afresh and
-//    joins the total with one rounded add; two taps are in flight
+//    run wgmma m64nNk16 (N = 32, 40, 64 or 128): A from registers (ldmatrix
+//    at the per-lane tap addresses), B read straight from the resident
+//    weights through descriptors (K-major, hopper.cuh). The tensor cores
+//    truncate their f32 sums, so each tap sums into a partial sum afresh
+//    and joins the total with one rounded add; two taps are in flight
 //    (hopper.cuh, gemm_taps), since at these widths a tap's time is mostly
-//    the wgmma's latency.
-//  * setmaxnreg leaves the producers 104-112 registers and gives the
-//    consumers 152 (two warpgroups, 512 threads) or 232 (one, 384 threads):
-//    the host checks the kernel's register count against that plan before
-//    a launch, so a count that could not serve it refuses the launch.
+//    the wgmma's latency. setmaxnreg leaves the producers 104-112 registers
+//    and gives the consumers 152 (two warpgroups) or 232 (one); the host
+//    checks the kernel's register count against that plan before a launch.
 //  * Each consumer warpgroup has its own output stage and synchronises only
-//    its own 128 threads (named barriers): no block-wide barrier after the
-//    weights are staged.
+//    its own 128 threads (named barriers). Epilogue: bias in f32, ReLU, the
+//    shortcut added, one rounding to bf16, staged so the NCHW stores are
+//    16-byte vectors (a transpose conv's depth-to-space included).
 //  * Plan (wg_plan): two consumer warpgroups (8 tile rows) where N <= 64
-//    (32 for a transpose conv) and kc <= 64, else one (4 rows); two stages
-//    where they fit beside the weights, else one; the first of (2, 2),
-//    (1, 2), (2, 1), (1, 1) (consumers, stages) inside a block's 227 KB.
-//  * Column groups (K4 only): a block holds the weights of one group of N
-//    output channels and walks every tile for it; blocks of one tile for
-//    all groups are neighbours in the grid, so the input's second read comes
-//    from L2. K4 is mode S2's geometry with a 4x4 footprint: an input tile
-//    of (TH - 1) * 2 + 4 rows by 34 pixels, 16 tap slots, a tap a row
-//    address at stride 2. Its 16 taps at 64 -> 65 channels would take 262 KB
+//    (32 for a transpose conv) and kc <= 64 (T3 in chains: any kc), else
+//    one (4 rows); two stages where they fit beside the weights, else one.
+// The transpose convs run their output parities in turn on each consumer's
+// rows, so the warpgroups share the work evenly:
+//  * T (4x4/s2): parity (py, px) takes 2x2 of the 16 taps (dy in {-1, 0}
+//    for py = 0, {0, 1} for py = 1, the same for x), 4 taps each.
+//  * T3 (3x3/s2, output_padding 1): output (2i + py, 2j + px) reads input
+//    (i + ay, j + ax) at tap (py + 1 - 2 ay, px + 1 - 2 ax): parity (0, 0)
+//    1 tap, (0, 1) and (1, 0) 2, (1, 1) 4. The residual conv's backward
+//    stacks its 1x1 shortcut under the 3x3 weight (cotangent [gm | g]), so
+//    the trailing half of K meets non-zero weights only at the centre tap,
+//    which parity (0, 0) alone reads: the caller passes that count
+//    (`centre`) and the other parities' taps stop at the channels before it
+//    (at 128 -> 64 channels 40 k16 steps a tile instead of 72). All nine
+//    taps stay resident (147 KB at 128 -> 64 channels).
+//    Where the cotangent is one part of aligned rows, one producer thread
+//    lands a tile's window as one tensor copy (T3_BOXW x (TH + 1) x kc, NCHW
+//    as stored, zeros outside the image and past cin) and the producers
+//    turn it channels-last (ldmatrix, stmatrix.trans), so the producers'
+//    per-thread copies no longer crowd the consumers' issue slots.
+//    Where kc is a multiple of 64, a tap runs as chains of 64 channels,
+//    4 k16 steps a compile-time count (no predicated step), the channels
+//    before `centre` rounded up to a block, and two consumer warpgroups
+//    take a tile where their shared memory fits (128 -> 32).
+//  * K4 (the 4x4/s2/p1 conv, input cotangent of T) is mode S2's geometry
+//    with a 4x4 footprint: an input tile of (TH - 1) * 2 + 4 rows by 34
+//    pixels, 16 tap slots. Its 16 taps at 64 -> 65 channels would take 262 KB
 //    of resident weights at 128 columns, so the columns go in the fewest
-//    groups of at most 64 (32, 40 or 64 wide; 65 -> two groups of 40, 82 KB
-//    each; 33 -> one of 40) whose plan fits a block (dispatch_k4). On the
-//    guided step's three calls on the H100 this took K4 from 0.172 to about
-//    0.12 ms of device time (PERF.md), where the mma.sync form lost to
-//    F.conv2d.
-// The 3x3/s2 transpose conv (mode T3) stays on the mma.sync mainloop of the
-// design before (conv_tc_kernel, fixed routing by mode): on the Hopper
-// mainloop (its parities as T's, with 1, 2, 2 and 4 taps) it was no faster
-// on the guided step's three calls on the H100.
-//  * T3 is the same over a 2x2 footprint: output (2i + py, 2j + px) reads
-//    input (i + ay, j + ax) at tap (py + 1 - 2 ay, px + 1 - 2 ax), so parity
-//    (0, 0) takes 1 tap, (0, 1) and (1, 0) take 2 and (1, 1) takes 4, the
-//    nine taps once each. All nine stay resident, one slot a tap: 157 KB at
-//    128 -> 64 channels; with the 4 x 16 tile's input and depth-to-space
-//    output stages (one buffer, 34 KB) 191 KB, one block a SM. The warps of
-//    parity (1, 1) run 4 taps while those of (0, 0) run 1, and the block
-//    waits on the longest.
-//  * There mma.sync m16n8k16 bf16 -> f32 is fed by ldmatrix for A and B,
-//    every warp loads and computes, and the next tile is prefetched into
-//    registers while the MMAs run.
+//    groups of at most 64 (32, 40 or 64 wide; 65 -> two groups of 40)
+//    whose plan fits a block (dispatch_k4); a block holds one group's
+//    weights and walks every tile for it, and the blocks of one tile are
+//    neighbours in the grid, so the input's second read comes from L2.
 #include "hopper.cuh"
 
 namespace nct {
 namespace tc {
 
-constexpr int TW = 16;        // tile width in output pixels: one m16 MMA tile per tile row
-constexpr int THREADS = 256;  // at most, per block of the mma.sync mainloop
+constexpr int TW = 16;  // tile width in output pixels: 16 GEMM rows per tile row
+constexpr int T3_BOXW = 24;  // T3 by tensor copies: a tile's 17 input columns from ox0, 16-byte rows
 
 // conv stride 1, conv stride 2, 4x4/s2 transpose conv, 3x3/s2 transpose
 // conv, 4x4/s2 conv, and the stride-1 conv on a flipped, in/out-transposed
@@ -134,11 +115,16 @@ __host__ __device__ constexpr int slots(int mode, bool res) {
 }
 
 struct Args {
+  CUtensorMap xmap;  // T3: the cotangent, one part, as (W, H, C, B), boxes of T3_BOXW x (TH + 1) x kc
   Part parts[MAX_PARTS];
   int vec[MAX_PARTS];  // 1: rows may be read as aligned 16-byte vectors
   int nparts, B, H, W, cin, cout, ho, wo;
   int kc;     // cin rounded up to 16
-  int cps;    // shared-memory row of a staged pixel (and of an mma.sync weight column), bf16: kc + 8
+  int cps;    // shared-memory row of a staged pixel, bf16: kc + 8
+  int centre;  // T3: trailing input channels whose weights are centre-only
+  int tma;     // T3: the cotangent lands by tensor copies and is turned channels-last in shared memory
+  int blocks64, blocks64_c;  // T3 where kc is a multiple of 64: 64-channel blocks of the centre tap, of the others
+  int kch_c;   // T3: k16 steps of the taps outside parity (0, 0), cin without those channels
   int coutp;   // a block's columns: its group of cout, rounded up to the columns of the warps (wgmma: N)
   int groups;  // column groups: block b computes columns [(b % groups) * coutp, + coutp)
   int stages;  // wgmma: input stages in the ring (1 or 2)
@@ -219,248 +205,6 @@ __device__ __forceinline__ void store_rows(const Args& a, const unsigned short* 
 }
 
 // ---------------------------------------------------------------------------
-// The mma.sync mainloop: mode T3
-// ---------------------------------------------------------------------------
-
-// acc[mt][nt] += A(tap) x B(slot) over all of K: two m-tiles (the warp's two
-// tile rows) by NTP pairs of n-tiles. a0: the lane's ldmatrix row address of
-// m-tile 0 at channel 0; arow: bytes from m-tile 0 to m-tile 1; b0: the
-// lane's address in the slot's first column pair; bpair: bytes between pairs.
-// The fragments of chunk k + 1 load while the MMAs of chunk k issue.
-template <int NTP>
-struct Frags {
-  uint32_t a[2][4], b[NTP][4];
-  __device__ __forceinline__ void load(uint32_t a0, uint32_t arow, uint32_t b0, uint32_t bpair, int k) {
-    ldsm_x4(a[0], a0 + 32 * k);
-    ldsm_x4(a[1], a0 + arow + 32 * k);
-#pragma unroll
-    for (int p = 0; p < NTP; ++p) ldsm_x4(b[p], b0 + p * bpair + 32 * k);
-  }
-  __device__ __forceinline__ void mma(float (&acc)[2][2 * NTP][4]) const {
-#pragma unroll
-    for (int p = 0; p < NTP; ++p)
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        mma_bf16(acc[m][2 * p], a[m], b[p][0], b[p][1]);
-        mma_bf16(acc[m][2 * p + 1], a[m], b[p][2], b[p][3]);
-      }
-  }
-};
-
-// A tap's MMAs sum into registers of their own that join the total with
-// one rounded add (the header's precision note).
-template <int NTP>
-__device__ __forceinline__ void mma_tap(float (&acc)[2][2 * NTP][4], uint32_t a0, uint32_t arow,
-                                        uint32_t b0, uint32_t bpair, int kchunks) {
-  float part[2][2 * NTP][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 2 * NTP; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
-  Frags<NTP> f0, f1;
-  f0.load(a0, arow, b0, bpair, 0);
-  int k = 0;
-  for (; k + 2 <= kchunks; k += 2) {
-    f1.load(a0, arow, b0, bpair, k + 1);
-    f0.mma(part);
-    if (k + 2 < kchunks) f0.load(a0, arow, b0, bpair, k + 2);
-    f1.mma(part);
-  }
-  if (k < kchunks) f0.mma(part);
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 2 * NTP; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
-}
-
-// MODE: T3. NTP: pairs of 8-column n-tiles per warp. WM: warps along M, two
-// tile rows each (TH = 2 WM). The block has WM x WN warps, WN = 4 x coutp /
-// (16 NTP) column blocks (a group of each output parity).
-template <int MODE, int NTP, int WM>
-__global__ void __launch_bounds__(THREADS) conv_tc_kernel(const Args a) {
-  constexpr int TH = 2 * WM, NT = 2 * NTP;
-  // input units (4 channels x 8 pixels) prefetched per thread; fewer where
-  // the accumulators of 3 or 4 column pairs leave fewer registers
-  constexpr int MAXU = NTP >= 3 ? 1 : 3;
-  using Gm = Geo<MODE, TH>;
-  constexpr int S = Gm::S;
-  NCT_DYN_SHARED(unsigned char, smem);
-  constexpr int nslots = slots(MODE, false);
-  unsigned short* ws = reinterpret_cast<unsigned short*>(smem);
-  float* bs = reinterpret_cast<float*>(smem + static_cast<size_t>(nslots) * a.coutp * a.cps * 2);
-  unsigned short* u = reinterpret_cast<unsigned short*>(bs + a.coutp);
-  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WM, wn = warp / WM;
-  // -- weights and bias, once per block: zero, then scatter in read order
-  for (int i = tid; i < nslots * a.coutp * a.cps / 8; i += nthr)
-    reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < a.coutp; i += nthr) bs[i] = (a.bias && i < a.cout) ? load_w(a.bias, a.bias_bf16, i) : 0.f;
-  __syncthreads();
-  // each thread walks rows of the stored weight (the taps of one input and
-  // one output channel, contiguous), rounding each tap to bf16 into its slot
-  auto put = [&](int slot, int co, int k, const void* src, long long i) {
-    ws[(slot * a.coutp + co) * a.cps + k] = __bfloat16_as_ushort(__float2bfloat16(load_w(src, a.w_bf16, i)));
-  };
-  {
-    // (cin, cout, 3, 3): slot = ky * 3 + kx
-    Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
-    for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) put(tap, w.q, w.rest, a.w, 9LL * rr + tap);
-    }
-  }
-
-  // -- the warp's place: tile rows 2 wm, 2 wm + 1; columns [c0, c0 + 16 NTP)
-  // of each of its groups (for T3, of parity par's group)
-  const int wnc = a.coutp / (16 * NTP);
-  const int par = transposed(MODE) ? wn / wnc : 0;
-  const int c0 = (transposed(MODE) ? wn % wnc : wn) * 16 * NTP;
-  const int kchunks = a.kc / 16;
-  const uint32_t rowb = a.cps * 2;  // bytes per pixel row of the tile / weight column
-  // ldmatrix lanes: A row = pixel q (lane % 16) at channel 8 (lane / 16);
-  // B: column (lane / 16) * 8 + lane % 8 at channel 8 ((lane / 8) % 2)
-  const int q = lane & 15;
-  const uint32_t a_lane = smem_u32(u) + ((2 * wm * S) * Gm::IW + q * S) * rowb + (lane >> 4) * 16;
-  const uint32_t b_lane = smem_u32(ws) + (c0 + (lane >> 4) * 8 + (lane & 7)) * rowb + ((lane >> 3) & 1) * 16;
-  const uint32_t arow = S * Gm::IW * rowb, bpair = 16 * rowb, bslot = a.coutp * rowb;
-
-  const int nq = a.kc / 4, units = Gm::IH * Gm::G * nq;
-  // persistent blocks: every gridDim.x-th tile
-  const int tstep = gridDim.x;
-  int t = blockIdx.x;
-  if (t >= a.tiles) return;
-  {
-    int b, oy0, ox0;
-    tile_origin<MODE, TH>(a, t, b, oy0, ox0);
-    Walk w(tid, nthr, nq);
-    for (int ui = tid; ui < units; ui += nthr, w.next()) {
-      uint4 v[4];
-      load_unit(a, b, oy0 * S - 1, ox0 * S - 8, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
-      store_unit<Gm::G, Gm::IW>(a, u, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
-    }
-  }
-  __syncthreads();
-
-  for (; t < a.tiles; t += tstep) {
-    int b, oy0, ox0;
-    tile_origin<MODE, TH>(a, t, b, oy0, ox0);
-    // prefetch the block's next tile into registers while the MMAs run
-    const int tn = t + tstep;
-    int nb = 0, noy0 = 0, nox0 = 0;
-    uint4 pf[MAXU][4];
-    if (tn < a.tiles) {
-      tile_origin<MODE, TH>(a, tn, nb, noy0, nox0);
-      Walk w(tid, nthr, nq);
-#pragma unroll
-      for (int i = 0; i < MAXU; ++i, w.next())
-        if (tid + i * nthr < units)
-          load_unit(a, nb, noy0 * S - 1, nox0 * S - 8, w.q, w.rest % Gm::G, w.rest / Gm::G, pf[i]);
-    }
-
-    float acc[2][NT][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-    {
-      // input (i + ay, j + ax) is staged pixel (ay + 1, ax + 1) from the warp's own
-      const int py = par >> 1, px = par & 1;
-#pragma unroll 1
-      for (int ay = 0; ay <= py; ++ay)
-#pragma unroll 1
-        for (int ax = 0; ax <= px; ++ax)
-          mma_tap<NTP>(acc, a_lane + ((ay + 1) * Gm::IW + ax + 1) * rowb, arow,
-                       b_lane + ((py + 1 - 2 * ay) * 3 + px + 1 - 2 * ax) * bslot, bpair, kchunks);
-    }
-    __syncthreads();  // every warp is done with the input tile
-
-    // -- epilogue: bias, ReLU, bf16, into the stage over the tile
-    {
-      const int gid = lane >> 2, cq = (lane & 3) * 2;
-      __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(u);
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int px_ = gid + (e >> 1) * 8, col = c0 + n * 8 + cq + (e & 1), r = 2 * wm + m;
-            float v = acc[m][n][e] + bs[col];
-            if (a.relu) v = fmaxf(v, 0.f);
-            st[col * Gm::OS + (2 * r + (par >> 1)) * Gm::OW + 2 * px_ + (par & 1)] = __float2bfloat16(v);
-          }
-    }
-    __syncthreads();
-    store_rows<Gm::OH, Gm::OW>(a, reinterpret_cast<const unsigned short*>(u), Gm::OS, a.cout, b, 0, 2 * oy0, 1,
-                               2 * ox0, tid, nthr);
-    __syncthreads();  // the stage is read out
-
-    if (tn < a.tiles) {
-      Walk w(tid, nthr, nq);
-#pragma unroll
-      for (int i = 0; i < MAXU; ++i, w.next())
-        if (tid + i * nthr < units) store_unit<Gm::G, Gm::IW>(a, u, w.q, w.rest % Gm::G, w.rest / Gm::G, pf[i]);
-      for (int ui = tid + MAXU * nthr; ui < units; ui += nthr, w.next()) {
-        uint4 v[4];
-        load_unit(a, nb, noy0 * S - 1, nox0 * S - 8, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
-        store_unit<Gm::G, Gm::IW>(a, u, w.q, w.rest % Gm::G, w.rest / Gm::G, v);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-inline size_t smem_bytes(int mode, int th, int coutp, int cps) {
-  const int s = stride_of(mode), k = ksize(mode);
-  const int ih = (th - 1) * s + k, iw = (TW - 1) * s + k;
-  const int oh = transposed(mode) ? 2 * th : th, ow = transposed(mode) ? 2 * TW : TW;
-  const size_t in = static_cast<size_t>(ih) * iw * cps * 2;
-  const size_t out = static_cast<size_t>(coutp) * (oh * ow + 8) * 2;
-  return static_cast<size_t>(slots(mode, false)) * coutp * cps * 2 + coutp * 4 + (in > out ? in : out);
-}
-
-template <int MODE, int NTP, int WM>
-int launch(Args& a, int wn, cudaStream_t st) {
-  constexpr int TH = 2 * WM;
-  void (*k)(const Args) = conv_tc_kernel<MODE, NTP, WM>;
-  const int threads = 32 * WM * wn;
-  const size_t smem = smem_bytes(MODE, TH, a.coutp, a.cps);
-  a.tiles_x = (a.W + TW - 1) / TW;
-  a.tiles_y = (a.H + TH - 1) / TH;
-  a.tiles = a.B * a.tiles_x * a.tiles_y;
-  int resident = 0;
-  if (const int e = resident_blocks(k, threads, smem, resident)) return e;
-  NCT_LAUNCH(k, dim3(a.tiles < resident ? a.tiles : resident), dim3(threads), smem, st, a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// WM 2 (a transpose conv has 4 column groups, one a parity), where the
-// weights and the input tile fit a block.
-template <int MODE, int NTP>
-int launch_fit(Args& a, int wn, cudaStream_t st) {
-  if (2 * wn * 32 <= THREADS && smem_bytes(MODE, 4, a.coutp, a.cps) <= MAX_SMEM)
-    return launch<MODE, NTP, 2>(a, wn, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int MODE>
-int dispatch_ntp(Args& a, int ntp, cudaStream_t st) {
-  const int wn = 4 * (a.coutp / (16 * ntp));
-  switch (ntp) {
-    case 1: return launch_fit<MODE, 1>(a, wn, st);
-    case 2: return launch_fit<MODE, 2>(a, wn, st);
-    case 4: return launch_fit<MODE, 4>(a, wn, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------------------
 // Hopper's mainloop: modes S1, S2 (each with the residual form), T, S1F
 // ---------------------------------------------------------------------------
 
@@ -489,17 +233,22 @@ __host__ __device__ constexpr int out_stride(int mode) { return 4 * (transposed(
 
 // Shared memory of conv_wg_kernel, byte offsets: the weights at 0 (slots x
 // np x kc bf16, each slot a K-major block of np columns), the bias (np
-// f32), the ring's barriers (full[4], empty[4]), the input stages, one
-// output stage per consumer warpgroup.
+// f32), the ring's barriers (full[4], empty[4]; T3 by tensor copies also
+// landed), its landing area, the input stages, one output stage per
+// consumer warpgroup.
 struct WgLayout {
-  size_t bias, bars, in, in_bytes, out, out_bytes, total;
-  __host__ __device__ WgLayout(int mode, bool res, int cw, int stages, int np, int kc, int cps) {
+  size_t bias, bars, land, land_bytes, in, in_bytes, out, out_bytes, total;
+  __host__ __device__ WgLayout(int mode, bool res, int cw, int stages, int np, int kc, int cps, bool tma = false) {
     const int th = 4 * cw, s = stride_of(mode), k = ksize(mode);
     const size_t ih = (th - 1) * s + k, iw = (TW - 1) * s + k;
     bias = static_cast<size_t>(slots(mode, res)) * np * kc * 2;
     bars = bias + static_cast<size_t>(np) * 4;
-    in = bars + 64;
-    in_bytes = (ih * iw * cps * 2 + 15) / 16 * 16;
+    // with tensor copies (T3): a landed barrier after the ring's, and a
+    // 128-byte aligned landing area for one box, T3_BOXW x (th + 1) x kc
+    land = tma ? (bars + 128 + 127) / 128 * 128 : bars + 64;
+    land_bytes = tma ? static_cast<size_t>(T3_BOXW) * (th + 1) * kc * 2 : 0;
+    in = land + land_bytes;
+    in_bytes = (ih * iw * cps * 2 + 15) / 16 * 16 + (tma ? 16 : 0);  // a spare row for the transpose's strays
     out = in + stages * in_bytes;
     out_bytes = static_cast<size_t>(np) * out_stride(mode) * 2;
     total = out + cw * out_bytes;
@@ -529,17 +278,17 @@ __device__ __forceinline__ void stage_tile(const Args& a, unsigned short* u, int
   }
 }
 
-// MODE: S1, S2, T or S1F. RES: the residual form (S1, S2). N: the padded
-// cout, the wgmma width (T: a parity's). CW: consumer warpgroups.
+// MODE: S1, S2, T, T3, K4 or S1F. RES: the residual form (S1, S2). N: the
+// padded cout, the wgmma width (T, T3: a parity's). CW: consumer warpgroups.
 template <int MODE, bool RES, int N, int CW>
-__global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args a) {
+__global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const __grid_constant__ Args a) {
   using P = Wg<CW>;
   constexpr int TH = P::TH, KMAX = P::KMAX, PW = P::PW, NR = N / 2;
   constexpr bool TR = transposed(MODE);
   using Gm = Geo<MODE, TH>;
   constexpr int S = Gm::S, OW = TR ? 2 * TW : TW, OS = out_stride(MODE), nslots = slots(MODE, RES);
   NCT_DYN_SHARED(unsigned char, smem);
-  const WgLayout L(MODE, RES, CW, a.stages, N, a.kc, a.cps);
+  const WgLayout L(MODE, RES, CW, a.stages, N, a.kc, a.cps, MODE == T3 && a.tma);
   unsigned short* ws = reinterpret_cast<unsigned short*>(smem);
   float* bs = reinterpret_cast<float*>(smem + L.bias);
   const uint32_t bars = smem_u32(smem + L.bars);
@@ -553,8 +302,10 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
   // -- weights (K-major, rounded to bf16), bias and barriers, once per block
   for (int i = tid; i < nslots * N * a.kc / 8; i += nthr) reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
   for (int i = tid; i < N; i += nthr) bs[i] = (a.bias && i < ncol) ? load_w(a.bias, a.bias_bf16, cbase + i) : 0.f;
+  const uint32_t landed = bars + 64;  // T3 by tensor copies: the box of the producers' next tile has landed
   if (tid == 0) {
     ring.init(128 * PW, 128 * CW);
+    if (MODE == T3 && a.tma) hop::mbar_init(landed, 1);
     hop::mbar_init_fence();
   }
   __syncthreads();
@@ -582,6 +333,16 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
 #pragma unroll
       for (int tap = 0; tap < 16; ++tap) put(tap, w.rest, w.q, a.w, 16 * row + tap);
     }
+  } else if constexpr (MODE == T3) {
+    // (cin, cout, 3, 3): slot = ky * 3 + kx; of the trailing centre-only
+    // input channels the centre tap alone (the zero fill holds the rest)
+    const int cfull = a.cin - a.centre;
+    Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
+    for (int rr = tid; rr < a.cin * a.cout; rr += nthr, w.next()) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        if (tap == 4 || w.rest < cfull) put(tap, w.q, w.rest, a.w, 9LL * rr + tap);
+    }
   } else if constexpr (MODE == S1F) {
     // the stride-1 conv's weight (cin, cout, 3, 3), flipped: slot = (2 - ky) * 3 + 2 - kx
     Walk w(tid, nthr, a.cout);  // q: output channel, rest: input channel
@@ -603,6 +364,43 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
   if (warp < 4 * PW) {
     // -- the producer warpgroups: the block's tiles, one stage each, in turn
     hop::setmaxnreg_dec<P::PREG>();
+    if constexpr (MODE == T3) {
+      if (a.tma) {
+        // one thread lands tile i + 1's box (NCHW, T3_BOXW x (TH + 1) x kc
+        // from (ox0, oy0)) while the producers turn tile i's channels-last:
+        // 8 x 8 blocks (8 channels of 8 pixels of a row) by ldmatrix, stored
+        // transposed by stmatrix into stage rows (yy, xx) = (row + 1, pixel
+        // + 1); pixels past the stage's 18 columns go to its spare row
+        const uint32_t land = smem_u32(smem + L.land);
+        const auto issue = [&](int t) {
+          int b, oy0, ox0;
+          tile_origin<MODE, TH>(a, t, b, oy0, ox0);
+          hop::mbar_arrive_tx(landed, static_cast<uint32_t>(L.land_bytes));
+          hop::tma_load_4d(land, &a.xmap, ox0, oy0, 0, b, landed);
+        };
+        const int nc8 = a.kc / 8, G3 = T3_BOXW / 8, blocks = nc8 * (TH + 1) * G3, r8 = lane & 7;
+        if (tid == 0 && t0 < a.tiles) issue(t0);
+        int i = 0;
+        for (int t = t0; t < a.tiles; t += tstep, ++i) {
+          hop::mbar_wait(landed, i & 1);
+          ring.acquire(i);
+          const uint32_t stg = smem_u32(smem + L.in + ring.stage(i) * L.in_bytes);
+          const uint32_t spare = stg + static_cast<uint32_t>(L.in_bytes - 16);
+          for (int b4 = 4 * warp; b4 < blocks; b4 += 16 * PW) {
+            int bl = b4 + (lane >> 3);
+            bl = bl < blocks ? bl : blocks - 1;  // a repeat of the last block: the same bytes again
+            const int g = bl % G3, row = (bl / G3) % (TH + 1), c8 = bl / (G3 * (TH + 1)), xx = 8 * g + r8 + 1;
+            uint32_t v[4];
+            ldsm_x4(v, land + (((8 * c8 + r8) * (TH + 1) + row) * T3_BOXW + 8 * g) * 2);
+            stsm_x4_t(xx < Gm::IW ? stg + (((row + 1) * Gm::IW + xx) * a.cps + 8 * c8) * 2 : spare, v);
+          }
+          hop::named_sync(3, 128 * PW);  // the box is read: the next one may land
+          if (tid == 0 && t + tstep < a.tiles) issue(t + tstep);
+          ring.publish(i);
+        }
+        return;
+      }
+    }
     int i = 0;
     for (int t = t0; t < a.tiles; t += tstep, ++i) {
       int b, oy0, ox0;
@@ -615,8 +413,8 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
     return;
   }
 
-  // -- consumer warpgroup c: warp w computes tile row r = 4 c + w (for T,
-  // input row r, output rows 2 r and 2 r + 1)
+  // -- consumer warpgroup c: warp w computes tile row r = 4 c + w (for T
+  // and T3, input row r, output rows 2 r and 2 r + 1)
   hop::setmaxnreg_inc<P::CREG>();
   const int c = (warp >> 2) - PW, w = warp & 3, r = 4 * c + w, ctid = tid - 128 * (c + PW);
   const int kch = a.kc / 16, gid = lane >> 2, cq = (lane & 3) * 2;
@@ -638,13 +436,38 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
 #pragma unroll 1
         for (int px = 0; px < 2; ++px) {
           const int par = 2 * py + px;
-          // parity (py, px): taps (ay, ax) = (t / 2, t % 2) read input (r + ay + py - 1, x + ax + px - 1)
-          hop::gemm_taps<N, KMAX>(
-              acc, 4, kch, N, [&](int t) { return ab + (((t >> 1) + py) * Gm::IW + (t & 1) + px) * rowb; },
-              [&](int t) { return hop::desc_at(bd, (par * 4 + t) * slot_b); },
-              [&] {
-                if (par == 3) ring.release(i);  // the tile's last read of the stage
-              });
+          const auto release = [&] {
+            if (par == 3) ring.release(i);  // the tile's last read of the stage
+          };
+          if constexpr (MODE == T) {
+            // parity (py, px): taps (ay, ax) = (t / 2, t % 2) read input (r + ay + py - 1, x + ax + px - 1)
+            hop::gemm_taps<N, KMAX>(
+                acc, 4, kch, N, [&](int t) { return ab + (((t >> 1) + py) * Gm::IW + (t & 1) + px) * rowb; },
+                [&](int t) { return hop::desc_at(bd, (par * 4 + t) * slot_b); }, release);
+          } else {
+            // parity (py, px): (py + 1) (px + 1) taps (ay, ax) read input
+            // (r + ay, x + ax), staged at (r + ay + 1, x + ax + 1), at weight
+            // tap (py + 1 - 2 ay, px + 1 - 2 ax); outside parity (0, 0) only
+            // the channels whose weights are not centre-only
+            const auto ay = [&](int t) { return px ? t >> 1 : t; };
+            const auto ax = [&](int t) { return px ? t & 1 : 0; };
+            const auto a_of = [&](int t) { return ab + ((ay(t) + 1) * Gm::IW + ax(t) + 1) * rowb; };
+            const auto d_of = [&](int t) {
+              return hop::desc_at(bd, ((py + 1 - 2 * ay(t)) * 3 + px + 1 - 2 * ax(t)) * slot_b);
+            };
+            if (a.blocks64) {
+              // chains of 64 channels (4 k16 steps, a compile-time count:
+              // straight-line code, no step the predicates of a runtime
+              // count would guard): chain q of the parity is channel block
+              // q % nb of tap q / nb, nb = the blocks its taps read
+              const int nb = par ? a.blocks64_c : a.blocks64;
+              hop::gemm_taps<N, 4>(
+                  acc, (py + 1) * (px + 1) * nb, 4, N, [&](int q) { return a_of(q / nb) + (q % nb) * 128; },
+                  [&](int q) { return hop::kstep(d_of(q / nb), N, 4 * (q % nb)); }, release);
+            } else {
+              hop::gemm_taps<N, KMAX>(acc, (py + 1) * (px + 1), par ? a.kch_c : kch, N, a_of, d_of, release);
+            }
+          }
           // bias, ReLU, bf16: output (2 r + py, 2 x + px) at stage row w
 #pragma unroll
           for (int j = 0; j < N / 8; ++j)
@@ -695,16 +518,22 @@ __global__ void __launch_bounds__(Wg<CW>::THREADS, 1) conv_wg_kernel(const Args 
 // The widest N two consumers take (their registers: two partial sums, two
 // sets of A fragments and the total; a transpose conv's parity loop needs
 // more, and at 64 ptxas serialized its wgmmas).
-__host__ __device__ constexpr int wg2_max_n(int mode) { return mode == T ? 32 : 64; }
+__host__ __device__ constexpr int wg2_max_n(int mode) { return transposed(mode) ? 32 : 64; }
 
 // The first of (consumers, stages) = (2, 2), (1, 2), (2, 1), (1, 1) whose
 // shared memory fits a block; two consumers only where N <= wg2_max_n and
-// kc <= 64, one where kc <= 128. False if none fits.
+// kc <= 64, one where kc <= 128. T3 in 64-channel chains takes two consumers
+// at any kc (a chain's A fragments are 4 k16 steps) and before two stages:
+// with one consumer warpgroup, a warp a scheduler, each warp's latencies lay
+// bare (128 -> 32 at 176x608 on the H100: 0.074 ms with one, 0.051 with
+// two, PERF.md). False if none fits.
 inline bool wg_plan(Args& a, int mode, bool res, int& cw, size_t& smem) {
   static constexpr int opts[4][2] = {{2, 2}, {1, 2}, {2, 1}, {1, 1}};
-  for (const auto& o : opts) {
-    if (a.kc > (o[0] == 2 ? 64 : 128) || (o[0] == 2 && a.coutp > wg2_max_n(mode))) continue;
-    const size_t s = WgLayout(mode, res, o[0], o[1], a.coutp, a.kc, a.cps).total;
+  static constexpr int opts_t3[4][2] = {{2, 2}, {2, 1}, {1, 2}, {1, 1}};
+  const bool chains = mode == T3 && a.blocks64;
+  for (const auto& o : chains ? opts_t3 : opts) {
+    if (a.kc > (o[0] == 2 && !chains ? 64 : 128) || (o[0] == 2 && a.coutp > wg2_max_n(mode))) continue;
+    const size_t s = WgLayout(mode, res, o[0], o[1], a.coutp, a.kc, a.cps, mode == T3 && a.tma).total;
     if (s <= MAX_SMEM) {
       cw = o[0], a.stages = o[1], smem = s;
       return true;
@@ -724,6 +553,16 @@ int launch_wg(Args& a, size_t smem, cudaStream_t st) {
   a.tiles_x = (gx + TW - 1) / TW;
   a.tiles_y = (gy + TH - 1) / TH;
   a.tiles = a.B * a.tiles_x * a.tiles_y;
+  if (MODE == T3 && a.tma) {
+    // the cotangent as (W, H, C, B), boxes of T3_BOXW x (TH + 1) x kc
+    const Part& q = a.parts[0];
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.W), static_cast<cuuint64_t>(a.H),
+                                static_cast<cuuint64_t>(a.cin), static_cast<cuuint64_t>(a.B)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(q.sh) * 2, static_cast<cuuint64_t>(q.sc) * 2,
+                                   static_cast<cuuint64_t>(q.sb) * 2};
+    const cuuint32_t box[4] = {T3_BOXW, TH + 1, static_cast<cuuint32_t>(a.kc), 1};
+    if (const int e = hop::tensor_map(&a.xmap, q.ptr, 4, dims, strides, box)) return e;
+  }
   int resident = 0;
   if (const int e = resident_blocks(k, P::THREADS, smem, resident)) return e;
   // as many blocks as fit, the same number for every column group
@@ -787,23 +626,27 @@ inline int dispatch_k4(Args& a, cudaStream_t st) {
 // cout, 3, 3) w as the stride-1 conv whose input cotangent this is: tap
 // (ky, kx) of w[ci][co] at (2 - ky, 2 - kx); wsc (cout, cin) of w's type
 // selects the residual form of a conv, relu(conv + bias) + conv1x1; bias
-// (cout) f32 (bias_dtype 0) or bf16 (1), or null. out: (B, cout, ho, wo)
-// bf16, contiguous. Takes cout up to 128 (64 for the residual form and the
+// (cout) f32 (bias_dtype 0) or bf16 (1), or null. centre (mode 3 only, 0 <=
+// centre < cin): the number of trailing input channels whose weights are
+// zero outside the centre tap (1, 1), whose other taps the kernel then
+// skips; 0 reads every tap of every channel. out: (B, cout, ho, wo) bf16,
+// contiguous. Takes cout up to 128 (64 for the residual form and the
 // transpose convs; any for mode 4, in column groups) where the weights and
-// the input tiles fit in shared memory (modes 0-2 up to cin 128); returns
+// the input tiles fit in shared memory (cin up to 128); returns
 // cudaErrorInvalidValue for any other call, else cudaGetLastError() after
-// the launch. Modes 0-2 and 4 run Hopper's mainloop, 3 the mma.sync one.
+// the launch. Every mode runs Hopper's mainloop (conv_wg_kernel).
 extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_meta, int nparts,
                            int B, int H, int W, int cin, int cout, int mode, const void* w,
                            int w_dtype, int w_flip, const void* wsc, const void* bias, int bias_dtype,
-                           void* out, int relu, void* stream) {
+                           void* out, int relu, int centre, void* stream) {
   using namespace nct;
   using namespace nct::tc;
   const bool res = wsc != nullptr;
   if (nparts < 1 || nparts > MAX_PARTS || B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1 ||
       mode < S1 || mode > K4 || (res && mode != S1 && mode != S2) || (w_flip != 0 && w_flip != 1) ||
       (w_flip && (mode != S1 || res)) || (mode == K4 && (H < 2 || W < 2)) ||
-      (w_dtype != F32 && w_dtype != BF16) || (bias_dtype != F32 && bias_dtype != BF16))
+      (w_dtype != F32 && w_dtype != BF16) || (bias_dtype != F32 && bias_dtype != BF16) || centre < 0 ||
+      centre >= cin || (centre && mode != T3))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   fill_parts(a.parts, part_ptrs, part_meta, nparts);
@@ -821,6 +664,14 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   a.wo = transposed(mode) ? 2 * W : mode == S2 ? (W - 1) / 2 + 1 : mode == K4 ? W / 2 : W;
   a.kc = (cin + 15) / 16 * 16;
   a.cps = a.kc + 8;
+  a.centre = centre;
+  // T3's cotangent by tensor copies where it is one part of aligned 16-byte rows
+  a.tma = mode == T3 && nparts == 1 && a.vec[0];
+  // T3's taps in chains of 64 channels where kc allows it (a block past the
+  // channels that are not centre-only has their weights' zeros)
+  a.blocks64 = mode == T3 && a.kc % 64 == 0 ? a.kc / 64 : 0;
+  a.blocks64_c = (cin - centre + 63) / 64;
+  a.kch_c = (cin - centre + 15) / 16;
   a.groups = 1;
   a.relu = relu;
   a.w = w, a.wsc = wsc, a.w_bf16 = w_dtype == BF16;
@@ -828,21 +679,15 @@ extern "C" int nct_conv_tc(const void* const* part_ptrs, const long long* part_m
   a.out = static_cast<__nv_bfloat16*>(out);
   a.out_vec = reinterpret_cast<uintptr_t>(out) % 16 == 0 && a.wo % 8 == 0;
   auto st = static_cast<cudaStream_t>(stream);
-  if (mode == T3) {
-    if (cout > 64) return static_cast<int>(cudaErrorInvalidValue);
-    const int gran = cout <= 16 ? 16 : 32;
-    a.coutp = (cout + gran - 1) / gran * gran;
-    // column pairs per warp: a parity's group one warp wide
-    return dispatch_ntp<T3>(a, a.coutp / 16 > 4 ? 4 : a.coutp / 16, st);
-  }
   if (mode == K4) return dispatch_k4(a, st);
   a.coutp = cout <= 32 ? 32 : cout <= 64 ? 64 : 128;
-  if (cout > (mode == T || res ? 64 : 128)) return static_cast<int>(cudaErrorInvalidValue);
+  if (cout > (transposed(mode) || res ? 64 : 128)) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
     case S1:
       if (w_flip) return dispatch_wg<S1F, false>(a, st);
       return res ? dispatch_wg<S1, true>(a, st) : dispatch_wg<S1, false>(a, st);
     case S2: return res ? dispatch_wg<S2, true>(a, st) : dispatch_wg<S2, false>(a, st);
+    case T3: return dispatch_wg<T3, false>(a, st);
     default: return dispatch_wg<T, false>(a, st);
   }
 }

@@ -19,12 +19,16 @@
 // a core matrix is 32 banks wide, so the reads are conflict-free.
 //
 // The A operand comes from registers: warp w of the warpgroup holds rows
-// 16 w .. 16 w + 15 of the 64, in mma.sync m16n8k16's A fragment layout,
-// which tc.cuh's ldsm_x4 loads from any 16 row addresses. The f32
+// 16 w .. 16 w + 15 of the 64 (lane l: register 0 row l / 4, columns
+// 2 (l % 4) and + 1, the low half first; register 1 the same 8 rows down;
+// registers 2 and 3 those 8 columns right), which tc.cuh's ldsm_x4 loads
+// from any 16 row addresses. The f32
 // accumulator d of an m64nNk16: thread (warp w, lane l) holds, for each
 // 8-column block j, d[4 j + e] at row 16 w + l / 4 + 8 (e / 2), column
 // 8 j + 2 (l % 4) + e % 2.
 #pragma once
+
+#include <cuda.h>
 
 #include "tc.cuh"
 
@@ -313,6 +317,31 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
 }
+// Host side: a bf16 tensor map of the given rank, dims, byte strides (of
+// dims 1 ..) and box, zeros out of bounds, for tma_load_4d / tma_load_5d /
+// tma_store_4d (the encoder found through the runtime's entry-point query,
+// no link to libcuda); 0 or an error.
+inline int tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static const Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) == cudaSuccess &&
+                   q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(fn)
+               : nullptr;
+  }();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
+                            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // A tensor copy (tile mode) of one box of a 4-d tensor map at signed
 // coordinates (c0 innermost) into shared memory at dst (128-byte aligned), by
 // the tensor memory accelerator; out-of-bounds elements land as zeros, and
@@ -326,6 +355,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, int c
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
 }
+
+// A tensor store of one box of a 4-d tensor map from shared memory at src
+// (aligned as the map's swizzle needs), asynchronous: commit with
+// bulk_commit; src may be written again once bulk_wait_read has returned.
+// Elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const void* map, int c0, int c1, int c2, int c3, uint32_t src) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// wait until at most N committed tensor stores still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// wait until the committed tensor stores are complete
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // the same of a 5-d tensor map
 __device__ __forceinline__ void tma_load_5d(uint32_t dst, const void* map, int c0, int c1, int c2, int c3, int c4,

@@ -1,7 +1,8 @@
-// The tensor-core primitives of the bf16 implicit-GEMM kernels (conv_tc.cu,
-// conv_chain_tc.cu, wgrad_tc.cu): ldmatrix (plain and transposing) and
-// mma.sync m16n8k16 bf16 -> f32 (cp.async is common.cuh's; Hopper's wgmma
-// and mbarriers are hopper.cuh's). A build may
+// The shared-memory primitives of the bf16 implicit-GEMM kernels (conv_tc.cu,
+// conv_chain_tc.cu, wgrad_tc.cu): ldmatrix, plain and transposing, which
+// loads wgmma's A fragments, and stmatrix.trans, which with ldmatrix turns
+// a landed NCHW tile channels-last (cp.async is common.cuh's; Hopper's wgmma and
+// mbarriers are hopper.cuh's), and the channels-last staging. A build may
 // predefine NCT_TC_PRIMITIVES and supply its own, as it may NCT_LAUNCH, to
 // run the kernels elsewhere than on the card.
 #pragma once
@@ -24,15 +25,14 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// four 8x8 b16 matrices from registers, each stored transposed; lane l gives
+// the row address of matrix l / 8
+__device__ __forceinline__ void stsm_x4_t(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r[0]),
+               "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
+
 #endif
 
 namespace nct {

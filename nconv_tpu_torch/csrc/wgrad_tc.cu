@@ -75,8 +75,6 @@
 //    run is bitwise repeatable for a given shape.
 // Routing is fixed by shape: (N, MT) by M and cin, the loads by the parts'
 // layout; no other path.
-#include <cuda.h>
-
 #include "hopper.cuh"
 
 namespace nct {
@@ -272,14 +270,6 @@ __device__ __forceinline__ void land_tma(const Args& a, uint32_t st, uint32_t la
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices from registers, each stored transposed; lane l gives
-// the row address of matrix l / 8
-__device__ __forceinline__ void stsm_x4_t(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r[0]),
-               "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
 }
 
 // The landed window into the x stage, channels-last, by the producer
@@ -592,29 +582,6 @@ inline void geometry(Args& a, const Plan& p) {
   a.tiles_x = p.tiles_x, a.tiles_y = p.tiles_y, a.tiles = p.tiles;
 }
 
-// A bf16 tensor map of the given rank, dims, byte strides (of dims 1 ..) and
-// box, zeros out of bounds; 0 or an error.
-inline int tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                      const cuuint32_t* box) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                              CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static const Encode encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q) == cudaSuccess &&
-                   q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<Encode>(fn)
-               : nullptr;
-  }();
-  if (!encode) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides, box,
-                            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // x's part i as (W, H, C, B) with boxes of 8 G pixels x ih rows x 8 channels;
 // g (one part) as (8 pixels, M, wo / 8, ho, B) with boxes of 8 x N x 4 x 4:
 // the box lands as [4 rr + gg][n][8 pixels], the K-major stage
@@ -626,7 +593,7 @@ inline int x_map(Args& a, int i) {
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(q.sh) * 2, static_cast<cuuint64_t>(q.sc) * 2,
                                  static_cast<cuuint64_t>(q.sb) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(8 * a.gx), static_cast<cuuint32_t>(a.ih), 8, 1};
-  return tensor_map(&a.xmap[i], q.ptr, 4, dims, strides, box);
+  return hop::tensor_map(&a.xmap[i], q.ptr, 4, dims, strides, box);
 }
 inline int g_map(Args& a, int n) {
   const Part& q = a.g[0];
@@ -636,7 +603,7 @@ inline int g_map(Args& a, int n) {
   const cuuint64_t strides[4] = {static_cast<cuuint64_t>(q.sc) * 2, 16, static_cast<cuuint64_t>(q.sh) * 2,
                                  static_cast<cuuint64_t>(q.sb) * 2};
   const cuuint32_t box[5] = {8, static_cast<cuuint32_t>(n), TW / 8, TH, 1};
-  return tensor_map(&a.gmap, q.ptr, 5, dims, strides, box);
+  return hop::tensor_map(&a.gmap, q.ptr, 5, dims, strides, box);
 }
 
 template <int N, int MT>

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "nct_conv3x3": [P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, I, P],
     "nct_nconv": [P, P, P, I, I, I, I, I, I, I, I, I, I, F, P, P, P, P, P, P, P, P],
     "nct_conv_transpose4x4s2": [P, P, I, I, I, I, I, I, I, P, P, P, I, P],
-    "nct_conv_tc": [P, P, I, I, I, I, I, I, I, P, I, I, P, P, I, P, I, P],
+    "nct_conv_tc": [P, P, I, I, I, I, I, I, I, P, I, I, P, P, I, P, I, I, P],
     "nct_conv_thin": [P, P, I, I, I, I, I, I, I, P, P, P, I, P, I, P],
     "nct_conv_chain2": [P, I, I, I, I, I, I, I, P, P, P, P, P, P],
     "nct_conv_chain_tc": [P, I, I, I, I, I, I, P, P, P, P, I, P, P],

@@ -106,16 +106,18 @@ class _Conv3x3Function(torch.autograd.Function):
         return d_w, _bias_grad(ctx, g), None, None, None, *d_parts
 
 
-def _input_grads(gw, weight, stride, parts, needs):
+def _input_grads(gw, weight, stride, parts, needs, centre=0):
     """Each part's input cotangent of a 3x3 pad-1 conv at ``stride`` (one
-    conv, sliced per part; None where a part needs none)."""
+    conv, sliced per part; None where a part needs none); ``centre``: the
+    trailing channels of ``gw`` whose weights are centre-only
+    (:func:`~.convops.conv3x3s2_input_grad`)."""
     if not any(needs):
         return [None] * len(parts)
     if stride == 1:
         d_x = conv2d_input_grad(gw, weight, 1)
     else:
         h, w = parts[0].shape[2:]
-        d_x = conv3x3s2_input_grad(gw, weight)[:, :, :h, :w]
+        d_x = conv3x3s2_input_grad(gw, weight, centre)[:, :, :h, :w]
     return _split(d_x, parts, needs)
 
 
@@ -151,7 +153,8 @@ class _Conv3x3ResidualFunction(torch.autograd.Function):
         gm = g * ((out - short) > 0)
         g2 = torch.cat([gm, g], 1).to(weight.dtype)
         stacked = torch.cat([weight, centre])
-        d_parts = _input_grads(g2, stacked, ctx.stride, parts, ctx.needs_input_grad[5:])
+        # g's channels meet the shortcut's weights, which are centre-only
+        d_parts = _input_grads(g2, stacked, ctx.stride, parts, ctx.needs_input_grad[5:], centre=g.shape[1])
         d_w = d_sc = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[2]:
             d_k = conv2d_wgrad(parts, [g2], 3, stride=ctx.stride, padding=1).to(weight.dtype)

@@ -288,7 +288,7 @@ def _conv_tc_kernel(parts, weight, bias, stride, relu, shortcut):
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
     kernels.launch("conv_tc", "nct_conv_tc", out, ptrs, meta, len(parts), b, h, w, cin, cout, stride - 1, wt,
                    _weight_code(wt, "conv_tc"), 0, st, bt, 0 if bt is None else _weight_code(bt, "conv_tc"), out,
-                   int(relu))
+                   int(relu), 0)
     return out
 
 
@@ -359,7 +359,7 @@ def _conv_transpose_tc_kernel(parts, weight, bias, relu):
     ptrs, meta = kernels.part_args(parts, [False] * len(parts))
     kernels.launch("conv_transpose_tc", "nct_conv_tc", out, ptrs, meta, len(parts), b, h, w, cin, cout, 2, wt,
                    _weight_code(wt, "conv_transpose_tc"), 0, None, bt,
-                   0 if bt is None else _weight_code(bt, "conv_transpose_tc"), out, int(relu))
+                   0 if bt is None else _weight_code(bt, "conv_transpose_tc"), out, int(relu), 0)
     return out
 
 
@@ -548,7 +548,7 @@ def _conv_input_grad_tc_kernel(cot, weight, padding):
     out = torch.empty((b, cin, h, w), device=cot.device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args([cot], [False])
     kernels.launch("conv_input_grad_tc", "nct_conv_tc", out, ptrs, meta, 1, b, h, w, cout, cin, 0, wt,
-                   _weight_code(wt, "conv_input_grad_tc"), 1, None, None, 0, out, 0)
+                   _weight_code(wt, "conv_input_grad_tc"), 1, None, None, 0, out, 0, 0)
     return out
 
 
@@ -566,32 +566,40 @@ def _conv4x4s2_tc_kernel(cot, weight):
     out = torch.empty((b, cout, ho, wo), device=cot.device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args([cot], [False])
     kernels.launch("conv4x4s2_tc", "nct_conv_tc", out, ptrs, meta, 1, b, h, w, cin, cout, 4, wt,
-                   _weight_code(wt, "conv4x4s2_tc"), 0, None, None, 0, out, 0)
+                   _weight_code(wt, "conv4x4s2_tc"), 0, None, None, 0, out, 0, 0)
     return out
 
 
-def _check_t3(cot, weight):
+def _check_t3(cot, weight, centre=0):
     dt = _grad_dtype(cot, weight)
     if weight.dim() != 4 or tuple(weight.shape) != (cot.shape[1], weight.shape[1], 3, 3):
         raise ValueError(f"K3 3x3/s2 form: weight {tuple(weight.shape)} does not fit {tuple(cot.shape)}")
+    if isinstance(centre, bool) or not isinstance(centre, int) or not 0 <= centre < cot.shape[1]:
+        raise ValueError(f"K3 3x3/s2 form: centre must be an int in [0, {cot.shape[1]}), got {centre!r}")
     return dt
 
 
-def conv3x3s2_input_grad(cot: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def conv3x3s2_input_grad(cot: torch.Tensor, weight: torch.Tensor, centre: int = 0) -> torch.Tensor:
     """Input cotangent (B, cin, 2h, 2w) of a 3x3 stride-2 pad-1 conv of an
     even-sized input (weight (cout, cin, 3, 3)) from its output cotangent
     ``cot`` (B, cout, h, w): the 3x3/s2/p1 transposed conv with
-    output_padding 1. In ``cot``'s dtype."""
+    output_padding 1. In ``cot``'s dtype. ``centre``: the number of trailing
+    ``cot`` channels whose weights are zero outside the centre tap (a 1x1
+    conv stacked under a 3x3 one, as the residual form's backward stacks
+    them), which the tensor-core form then skips outside the centre tap; the
+    result is the same."""
     if not kernels.on_card(cot, weight):
-        return conv3x3s2_input_grad_plain(cot, weight)
+        return conv3x3s2_input_grad_plain(cot, weight, centre)
     if cot.dtype == torch.bfloat16:
-        return _conv_transpose3x3s2_tc_kernel(cot, weight)
+        return _conv_transpose3x3s2_tc_kernel(cot, weight, centre)
+    _check_t3(cot, weight, centre)
     return _conv_transpose3x3s2_kernel(cot, weight)
 
 
-def conv3x3s2_input_grad_plain(cot, weight):
-    """The plain PyTorch version of :func:`conv3x3s2_input_grad`."""
-    _check_t3(cot, weight)
+def conv3x3s2_input_grad_plain(cot, weight, centre=0):
+    """The plain PyTorch version of :func:`conv3x3s2_input_grad`: the full
+    transposed conv, whatever ``centre`` says."""
+    _check_t3(cot, weight, centre)
     with kernels.exact_f32(cot):
         return F.conv_transpose2d(kernels.widen(cot), kernels.widen(weight), stride=2,
                                   padding=1, output_padding=1).to(cot.dtype)
@@ -611,9 +619,9 @@ def _conv_transpose3x3s2_kernel(cot, weight):
     return out
 
 
-def _conv_transpose3x3s2_tc_kernel(cot, weight):
+def _conv_transpose3x3s2_tc_kernel(cot, weight, centre=0):
     kernels.no_graph("conv_transpose3x3s2_tc", cot, weight)
-    if _check_t3(cot, weight) != torch.bfloat16:
+    if _check_t3(cot, weight, centre) != torch.bfloat16:
         raise TypeError(f"the tensor-core 3x3/s2 form takes bfloat16, got {cot.dtype}")
     b, cin, h, w = cot.shape
     cout = weight.shape[1]
@@ -623,7 +631,7 @@ def _conv_transpose3x3s2_tc_kernel(cot, weight):
     out = torch.empty((b, cout, 2 * h, 2 * w), device=cot.device, dtype=torch.bfloat16)
     ptrs, meta = kernels.part_args([cot], [False])
     kernels.launch("conv_transpose3x3s2_tc", "nct_conv_tc", out, ptrs, meta, 1, b, h, w, cin, cout, 3, wt,
-                   _weight_code(wt, "conv_transpose3x3s2_tc"), 0, None, None, 0, out, 0)
+                   _weight_code(wt, "conv_transpose3x3s2_tc"), 0, None, None, 0, out, 0, centre)
     return out
 
 

@@ -1,26 +1,29 @@
-"""Per-call times of the mixed frame's tensor-core kernels (``conv_tc``,
-``conv_transpose_tc``, ``conv_chain_tc``) and the frame's three clocks, for
-the port found under ``--root`` (a checkout or a ``git archive`` of any
-tree), so that two trees can be compared in turns on one card:
+"""Per-call times of the mixed frame's tensor-core and thin kernels
+(``conv_tc``, ``conv_transpose_tc``, ``conv_chain_tc``, ``conv_thin``) and
+the frame's three clocks, for the port found under ``--root`` (a checkout
+or a ``git archive`` of any tree), so that two trees can be compared in
+turns on one card:
 
     python3 scripts/tc_compare.py --root compare/parent --out build/tc_compare/parent_1.json
     python3 scripts/tc_compare.py --root . --out build/tc_compare/change_1.json
 
 It records one two-stream 352x1216 request of the mixed ``StreamingEngine``
 (random weights from a seed, as ``chip_smoke.py`` builds them), replays each
-tensor-core call on random inputs of its shapes through ``chip_smoke.py``'s
+such call on random inputs of its shapes through ``chip_smoke.py``'s
 ``check_call`` (kernel vs plain version, single-launch ms, library ms,
-bound) and its device time from a CUDA graph (``graph_ms``), then takes
-``runtime.benchmark``'s ``device`` / ``synced`` / ``e2e`` p50 and a
+bound), its device time and its library call's from CUDA graphs
+(``graph_ms``), then takes ``runtime.benchmark``'s ``device`` / ``synced``
+/ ``e2e`` p50 and a
 ``runtime.profile.trace`` of graphed requests (device ms a request by
 kernel). Needs a CUDA device; prints one JSON object as its last line.
 
 With ``--train`` it records one bf16 guided train step instead (batch 1,
 352x1216, adamw, step 1 frozen, as ``chip_smoke.py`` phase 6) and times
 each call of the backward's tensor-core forms (``wgrad_tc``,
-``conv4x4s2_tc``, ``conv_transpose3x3s2_tc``, ``conv_input_grad_tc``) the
-same way: kernel vs plain, single-launch ms, device ms, its library call's
-device ms (both replayed from a CUDA graph), bound; per-kernel sums a step;
+``conv4x4s2_tc``, ``conv_transpose3x3s2_tc``, ``conv_input_grad_tc``) and
+of the forward's four heads (``conv_thin``) the same way: kernel vs plain,
+single-launch ms, device ms, its library call's device ms (both replayed
+from a CUDA graph), bound; per-kernel sums a step;
 and a ``runtime.profile.trace`` of train steps (busy ms a step, device ms a
 step by kernel):
 
@@ -81,16 +84,18 @@ def main() -> int:
         eng.forward_staged(eng.stage(*frames[0]))
     torch.cuda.synchronize()
     g = torch.Generator(device="cuda").manual_seed(1234)
-    results = {k: cs.check_call(k, g) for k in rec.calls if k[0] in cs.TC_SERVING}
+    results = {k: cs.check_call(k, g) for k in rec.calls if k[0] in cs.TC_SERVING + ("conv_thin",)}
     bad = {repr(k): r["err"] for k, r in results.items() if r["err"] > r["bar"]}
     stats = {k: v.as_dict() for k, v in benchmark(
         eng, n_frames=cs.BENCH_FRAMES, warmup=10, frame_factory=lambda i: frames[i % len(frames)]).items()}
     sums = cs.tc_breakdown(results, rec.calls, stats)
+    sums["conv_thin"] = thin_breakdown(cs, results, rec.calls)
     cycle = itertools.cycle(frames)
     prof = trace(lambda: eng(*next(cycle)), cs.N_REQUESTS)
     by_kernel = {}
     for name, ms in prof["device_ms_per_request"].items():
         group = ("conv_chain_tc" if "chain_tc_kernel" in name else
+                 "conv_thin" if "nct::thin::" in name else
                  "conv_tc (all modes)" if "conv_wg_kernel" in name or "conv_tc_kernel" in name else
                  "nconv" if "nconv" in name else "other")
         by_kernel[group] = by_kernel.get(group, 0.0) + ms
@@ -108,16 +113,33 @@ def main() -> int:
     return 1 if bad else 0
 
 
+def thin_breakdown(cs, results, calls):
+    """Each ``conv_thin`` call of a mixed frame (the u8 encoder and the four
+    heads): launches, single-launch ms, device ms, its library call's device
+    ms, bound and share; returns their sums a frame."""
+    mine = [(k, r) for k, r in results.items() if k[0] == "conv_thin" and k in calls]
+    for key, r in mine:
+        chans = "+".join(f"{sig[0][1]} {sig[1]}" for sig in key[1])
+        cs.log(f"    conv_thin x{calls[key]} in {chans} out {r['shape'][0]}: ms {r['ms']:.4f} device "
+               f"{r['device_ms']:.4f} lib device {r['library_device_ms']:.4f} bound {r['bound_ms']:.4f} "
+               f"share {r['bound_ms'] / r['device_ms']:.1%} of device")
+    sums = {f: sum(r[f] * calls[k] for k, r in mine) for f in ("ms", "device_ms", "library_device_ms", "bound_ms")}
+    cs.log("per mixed frame: conv_thin " + ", ".join(f"{f} {v:.4f}" for f, v in sums.items()))
+    return sums
+
+
 # a kernel of the trace by its demangled name: nct::<namespace>::<kernel><MODE, ...
-_TRAIN_GROUPS = (("wgrad_tc", r"nct::wtc::"), ("conv4x4s2_tc", r"nct::tc::conv_\w+_kernel<4,"),
+_TRAIN_GROUPS = (("wgrad_tc", r"nct::wtc::"), ("conv_thin", r"nct::thin::"),
+                 ("conv4x4s2_tc", r"nct::tc::conv_\w+_kernel<4,"),
                  ("conv_transpose3x3s2_tc", r"nct::tc::conv_\w+_kernel<3,"),
                  ("conv_input_grad_tc", r"nct::tc::conv_wg_kernel<5,"), ("conv_tc (forward)", r"nct::tc::"),
                  ("other port kernels", r"nct::"))
 
 
 def train(cs, steps):
-    """One bf16 guided step's backward tensor-core calls, each timed and
-    held to its plain version, their sums a step, and a profile of steps."""
+    """One bf16 guided step's backward tensor-core calls and its heads, each
+    timed and held to its plain version, their sums a step, and a profile
+    of steps."""
     import torch
 
     from nconv_tpu_torch.data import bench_batch
@@ -132,7 +154,8 @@ def train(cs, steps):
     rec = cs.Recorder()
     with rec.recording():
         cs.guided_step(batch, torch.bfloat16, cfg, state, step1_state, plain=False)
-    calls = {k: c for k, c in rec.calls.items() if k[0] in cs.BF16_STEP_KERNELS}
+    kinds = cs.BF16_STEP_KERNELS + ("conv_thin",)
+    calls = {k: c for k, c in rec.calls.items() if k[0] in kinds}
     g = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
     for key in sorted(calls, key=repr):
@@ -142,7 +165,7 @@ def train(cs, steps):
                f"{r['library_device_ms']} bound {r['bound_ms']:.4f} ({r['bound_by']})"
                + (f" vs f64 {r['f64_err']:.3e} (plain {r['plain_f64_err']:.3e})" if "f64_err" in r else ""))
     bad = {repr(k): r["err"] for k, r in results.items() if r["err"] > r["bar"]}
-    sums = cs.step_sums(calls, results, cs.BF16_STEP_KERNELS)
+    sums = cs.step_sums(calls, results, kinds)
     prof = trace(_train_step("guided", torch.bfloat16, cs.H, cs.W), steps)
     by_kernel = {}
     for name, ms in prof["device_ms_per_request"].items():

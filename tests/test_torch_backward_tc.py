@@ -126,6 +126,70 @@ def test_backward_forms_refuse_what_they_cannot_take():
     assert stub.calls == [] and kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
 
 
+# nct_conv_tc's arguments: (ptrs, meta, nparts, B, H, W, cin, cout, mode, w,
+# w_dtype, w_flip, wsc, bias, bias_dtype, out, relu, centre, stream)
+_MODE, _CENTRE = 8, 17
+
+
+def _centre_only(w, n):
+    """``w`` (cin, cout, 3, 3) with its last ``n`` rows zero outside the
+    centre tap, as the residual backward stacks the 1x1 shortcut."""
+    w = w.clone()
+    w[w.shape[0] - n:, :, [0, 0, 0, 1, 1, 2, 2, 2], [0, 1, 2, 0, 2, 0, 1, 2]] = 0
+    return w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_t3_centre_count_routes_and_leaves_the_result(dtype):
+    """``conv3x3s2_input_grad``'s ``centre``: the bf16 call hands it to mode 3
+    of ``nct_conv_tc`` (0 by default), the f32 call reaches K3's CUDA-core
+    form as before; on the CPU the plain version gives the same result with
+    and without it."""
+    g = torch.Generator().manual_seed(19)
+    cot, w = _r(g, 1, 12, 5, 9, dtype=dtype), _centre_only(_r(g, 12, 8, 3, 3, dtype=dtype), 4)
+    with stub_card() as stub:
+        ops.conv3x3s2_input_grad(cot, w, 4)
+        ops.conv3x3s2_input_grad(cot, w)
+    (n1, a1), (n2, a2) = stub.launched()
+    if dtype == BF16:
+        assert n1 == n2 == "nct_conv_tc" and (a1[_MODE], a1[_CENTRE], a2[_CENTRE]) == (3, 4, 0)
+    else:
+        assert n1 == n2 == "nct_conv_transpose3x3s2"
+    plain = ops.conv3x3s2_input_grad(cot, w)
+    assert torch.equal(ops.conv3x3s2_input_grad(cot, w, 4), plain)
+    assert torch.equal(ops.conv3x3s2_input_grad_plain(cot, w, 11), ops.conv3x3s2_input_grad_plain(cot, w))
+
+
+@pytest.mark.parametrize("centre", [-1, 12, 13, 1.5, True, None])
+def test_t3_centre_count_refuses_bad_values(centre):
+    """A count outside [0, cin) or not an int raises before any launch, on
+    the card's path and the plain one."""
+    g = torch.Generator().manual_seed(20)
+    cot, w = _r(g, 1, 12, 5, 9, dtype=BF16), _r(g, 12, 8, 3, 3, dtype=BF16)
+    with stub_card() as stub:
+        with pytest.raises(ValueError):
+            ops.conv3x3s2_input_grad(cot, w, centre)
+        with pytest.raises(ValueError):
+            ops.conv3x3s2_input_grad(cot.float(), w.float(), centre)
+    assert stub.calls == []
+    with pytest.raises(ValueError):
+        ops.conv3x3s2_input_grad_plain(cot, w, centre)
+
+
+def test_residual_backward_passes_the_shortcuts_channels_as_centre_only():
+    """The stride-2 residual conv's backward: the cotangent [gm | g] against
+    [weight ; shortcut at the centre tap], so g's channels (cout of them)
+    are centre-only."""
+    g = torch.Generator().manual_seed(21)
+    x = _r(g, 1, 8, 10, 18, dtype=BF16).requires_grad_()
+    w, sc = _r(g, 16, 8, 3, 3, dtype=BF16).requires_grad_(), _r(g, 16, 8, 1, 1, dtype=BF16).requires_grad_()
+    with stub_card() as stub:
+        y = ops.conv3x3_residual_trainable([x], w, None, sc, stride=2)
+        y.backward(torch.zeros_like(y))
+    t3 = [a for n, a in stub.launched() if n == "nct_conv_tc" and a[_MODE] == 3]
+    assert len(t3) == 1 and (t3[0][6], t3[0][_CENTRE]) == (32, 16)
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -209,3 +273,42 @@ def test_conv_transpose3x3s2_tc_matches_plain_version(card, cin, cout, b, h, w):
     assert got.dtype == BF16 and got.shape == (b, cout, 2 * h, 2 * w) and _rel(got, want) <= 5e-3
     counts = kernels.launch_counts()
     assert counts["conv_transpose3x3s2_tc"] == 1 and counts["conv_transpose3x3s2"] == 0
+
+
+# the bf16 guided step's three calls: the RGB encoder's stride-2 residual
+# convs, cotangent [gm | g] of 128 channels against [weight ; shortcut]
+_T3_CALLS = [(32, 176, 608), (64, 88, 304), (64, 44, 152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout,h,w", _T3_CALLS)
+def test_conv_transpose3x3s2_tc_at_the_guided_steps_calls(card, cout, h, w):
+    """Each call with its 64 centre-only channels against the plain version,
+    bitwise equal to the generic form (the skipped products are zeros) and
+    to a second launch."""
+    gen = torch.Generator(device=card).manual_seed(cout + h)
+    cot = torch.randn(1, 128, h, w, generator=gen, device=card).to(BF16)
+    wt = _centre_only((torch.randn(128, cout, 3, 3, generator=gen, device=card) * (9 * 128) ** -0.5).to(BF16), 64)
+    kernels.reset_launch_counts()
+    got, again, generic = (ops.conv3x3s2_input_grad(cot, wt, c) for c in (64, 64, 0))
+    assert kernels.launch_counts()["conv_transpose3x3s2_tc"] == 3
+    assert got.shape == (1, cout, 2 * h, 2 * w) and _rel(got, ops.conv3x3s2_input_grad_plain(cot, wt)) <= 5e-3
+    assert torch.equal(got, generic) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,centre,cout,b,h,w", [
+    (40, 8, 24, 3, 7, 13),    # B 3, W odd, a centre count that is not a multiple of 16
+    (128, 64, 64, 2, 5, 21),  # two images, a ragged tile
+    (24, 23, 8, 1, 9, 40),    # one channel outside the centre-only ones
+    (96, 0, 40, 1, 6, 17),    # the generic form at 40 outputs (64 columns)
+    (48, 16, 64, 2, 9, 24),   # 64 columns, k16 steps a tap by count
+    (64, 8, 64, 1, 12, 33),   # 64-channel chains at 64 columns, W odd
+])
+def test_conv_transpose3x3s2_tc_centre_count_ragged(card, cin, centre, cout, b, h, w):
+    gen = torch.Generator(device=card).manual_seed(cin + centre + h)
+    cot = torch.randn(b, cin, h, w, generator=gen, device=card).to(BF16)
+    wt = _centre_only((torch.randn(cin, cout, 3, 3, generator=gen, device=card) * (9 * cin) ** -0.5).to(BF16),
+                      centre)
+    got, generic = ops.conv3x3s2_input_grad(cot, wt, centre), ops.conv3x3s2_input_grad(cot, wt)
+    assert _rel(got, ops.conv3x3s2_input_grad_plain(cot, wt)) <= 5e-3 and torch.equal(got, generic)

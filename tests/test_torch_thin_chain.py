@@ -1,5 +1,5 @@
-"""The thin CUDA-core form of K2 (``csrc/conv_thin.cu``: the u8 frame's
-residual encoder and the cout < 8 heads, bf16 out), K4 on the tensor cores
+"""The thin forms of K2 (``csrc/conv_thin.cu``: the u8 frame's residual
+encoder on the tensor cores and the cout < 8 heads, bf16 out), K4 on the tensor cores
 (``csrc/conv_chain_tc.cu``, bf16), and the wrappers' device guard.
 
 On the CPU:
@@ -16,10 +16,16 @@ On the CPU:
   * every kernel wrapper launches inside the device guard of its output's
     device (a stub library records it), and the guard makes that device
     current;
-  * ``make_guided_predict`` leaves a model in train mode as it found it.
+  * ``make_guided_predict`` leaves a model in train mode as it found it;
+  * the encoder's three bf16 terms of an f32 weight (``split3`` of
+    ``csrc/common.cuh``, built for the host with g++) sum to it exactly
+    (a hypothesis property).
 
 On the card (``cuda``-marked, skipped here): each new form against its plain
-version at ragged shapes within 5e-3 rel RMSE (bf16 output rounding), and
+version at the main paths' call shapes and at ragged shapes (several parts,
+B 3, W not a multiple of 8 or 16, u8 frames read through NHWC strides)
+within 5e-3 rel RMSE (bf16 output rounding), a second launch bitwise equal
+to the first, the encoder's f32 weights within 2e-4 (exact products), and
 the calls it refuses raise. JAX is imported only by the tests that use it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_thin_chain.py
@@ -31,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from hypothesis import given, settings, strategies as st
 
 from nconv_tpu_torch import kernels, ops
 from nconv_tpu_torch.ops import convops, nconv
@@ -246,6 +253,76 @@ def test_thin_form_refuses_what_it_cannot_take():
         convops._conv_thin_kernel([xb], torch.zeros(8, 8, 3, 3), None, False, None)
     with pytest.raises(ValueError):  # and the CUDA-core form refuses the thin form's calls
         convops._conv3x3_kernel([xb], torch.zeros(1, 8, 3, 3), None, 1, False, None, BF16)
+
+
+@pytest.fixture(scope="module")
+def split3_lib(tmp_path_factory):
+    """``split3`` of ``csrc/common.cuh`` (the u8 encoder's three bf16 terms of
+    an f32 weight) built for the host with g++ under ``csrc/host_emu.h``."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build common.cuh for the host")
+    d = tmp_path_factory.mktemp("split3")
+    for stub in ("cuda_runtime.h", "cuda_bf16.h"):  # host_emu.h defines what common.cuh uses of them
+        (d / stub).write_text("")
+    (d / "split3.cpp").write_text(
+        '#include "common.cuh"\n'
+        'extern "C" void split3_n(const float* v, int n, unsigned short* out) {\n'
+        '  for (int i = 0; i < n; ++i) {\n'
+        '    unsigned short t[3];\n'
+        '    nct::split3(v[i], t);\n'
+        '    for (int j = 0; j < 3; ++j) out[3 * i + j] = t[j];\n'
+        '  }\n'
+        '}\n')
+    so = d / "split3.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{d}", f"-I{kernels.CSRC}",
+                    "-include", str(kernels.CSRC / "host_emu.h"), str(d / "split3.cpp"), "-o", str(so)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.split3_n.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def _split3(lib, values):
+    v = np.ascontiguousarray(values, np.float32)
+    out = np.zeros((v.size, 3), np.uint16)
+    lib.split3_n(v.ctypes.data, v.size, out.ctypes.data)
+    return out
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.lists(st.floats(min_value=-1e6, max_value=1e6, allow_nan=False, width=32).filter(
+    lambda f: f == 0 or abs(f) > 1e-30), min_size=1, max_size=64))
+def test_split3_terms_sum_to_every_f32_weight(split3_lib, values):
+    """Three bf16 terms whose sum (in float64, each term exact) is the f32
+    value itself; the terms shrink by at least 2^8 each; the first is the
+    value cut toward zero to bf16."""
+    v = np.asarray(values, np.float32)
+    t = _split3(split3_lib, v)
+    as_f32 = (t.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+    assert np.array_equal(as_f32.sum(1), v.astype(np.float64))
+    assert np.array_equal(t[:, 0], v.view(np.uint32) >> 16)
+    big = np.abs(as_f32[:, 0]) > 0
+    assert np.all(np.abs(as_f32[big, 1]) <= np.abs(as_f32[big, 0]) * 2.0 ** -7)
+    assert np.all(np.abs(as_f32[:, 2]) <= np.abs(as_f32[:, 1]) * 2.0 ** -7)
+
+
+def test_split3_of_the_encoders_weights(split3_lib):
+    """Every f32 weight of a served encoder's shape (32 x 3 x 3 x 3 and its
+    shortcut, from a seed, fan-in scaled) and bf16-valued weights (one term,
+    the others zero) are reproduced exactly."""
+    rng = np.random.default_rng(19)
+    w = (rng.standard_normal(32 * 30) * 27 ** -0.5).astype(np.float32)
+    t = _split3(split3_lib, w)
+    as_f32 = (t.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+    assert np.array_equal(as_f32.sum(1), w.astype(np.float64))
+    wb = _bf16(w)
+    tb = _split3(split3_lib, wb)
+    assert np.array_equal(tb[:, 1:], np.zeros_like(tb[:, 1:])) and np.array_equal(tb[:, 0], wb.view(np.uint32) >> 16)
 
 
 # ---------------------------------------------------------------------------
@@ -476,3 +553,82 @@ def test_thin_and_chain_tc_refuse_what_they_cannot_take(card):
     with pytest.raises(ValueError):  # more than 4 uint8 channels
         ops.conv3x3([torch.zeros(1, 5, 6, 7, dtype=torch.uint8, device=card)], torch.randn(8, 5, 3, 3, device=card),
                     out_dtype=BF16)
+
+
+# the main paths' conv_thin calls: the mixed frame's encoder (u8 [2, 352,
+# 1216, 3] -> 32) and heads (B 2), the bf16 guided step's heads (B 1)
+_HEADS = [(64, 44, 152), (64, 88, 304), (32, 176, 608), (32, 352, 1216)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 1])
+@pytest.mark.parametrize("cin,h,w", _HEADS)
+def test_conv_thin_heads_at_the_main_paths_shapes(card, b, cin, h, w):
+    """Each head call against its plain version, and a second launch
+    bitwise equal to the first (the cluster's partial sums add in rank
+    order)."""
+    g = torch.Generator(device=card).manual_seed(cin + h + b)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    x = r(b, cin, h, w).to(BF16)
+    wt, bias = r(1, cin, 3, 3) * (9 * cin) ** -0.5, r(1)
+    kernels.reset_launch_counts()
+    got, again = (ops.conv3x3([x], wt, bias, out_dtype=BF16) for _ in range(2))
+    assert kernels.launch_counts()["conv_thin"] == 2
+    assert _close(got, ops.conv3x3_plain([x], wt, bias, out_dtype=BF16)) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chans,cout,b,h,w", [
+    ((13,), 1, 3, 20, 40),     # a ragged last chunk by tensor copies, B 3
+    ((8, 8), 7, 1, 33, 72),    # two parts, two maps; cout 7 in 8 columns
+    ((24,), 2, 3, 19, 37),     # W not a multiple of 8: the producer warp's loads
+    ((4, 12), 4, 2, 70, 130),  # several tiles each way, W a multiple of 8 but not of 16
+])
+def test_conv_thin_head_ragged_shapes(card, chans, cout, b, h, w):
+    g = torch.Generator(device=card).manual_seed(sum(chans) + cout + h)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    parts = [r(b, c, h, w).to(BF16) for c in chans]
+    cin = sum(chans)
+    wt, bias = r(cout, cin, 3, 3) * (9 * cin) ** -0.5, r(cout)
+    got, again = (ops.conv3x3(parts, wt, bias, relu=True, out_dtype=BF16) for _ in range(2))
+    assert _close(got, ops.conv3x3_plain(parts, wt, bias, relu=True, out_dtype=BF16)) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,chans,cout,res", [
+    (3, 21, 37, (3,), 32, True),        # B 3, W not a multiple of 8 or 16
+    (1, 9, 130, (3, 1), 40, True),      # the frame and a 1-channel plane: 4 channels, 64 columns
+    (2, 6, 70, (1, 1, 2), 70, False),   # three parts; 70 outputs in two column groups
+])
+def test_conv_thin_u8_ragged_shapes(card, b, h, w, chans, cout, res):
+    g = torch.Generator(device=card).manual_seed(h + w + cout)
+    parts = []
+    for c in chans:  # each part an NHWC frame read through its strides
+        parts.append(torch.randint(0, 256, (b, h, w, c), generator=g, device=card, dtype=torch.uint8)
+                     .permute(0, 3, 1, 2))
+    cin = sum(chans)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    wt, bias = r(cout, cin, 3, 3) * 0.01, r(cout)
+    sc = r(cout, cin, 1, 1) * 0.01 if res else None
+    got, again = (ops.conv3x3(parts, wt, bias, relu=True, shortcut=sc, out_dtype=BF16) for _ in range(2))
+    want = ops.conv3x3_plain(parts, wt, bias, relu=True, shortcut=sc, out_dtype=BF16)
+    assert got.shape == (b, cout, h, w) and _close(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_conv_thin_u8_reads_f32_weights_exactly(card):
+    """The encoder at the frame's shape with f32 weights that are not
+    bf16-valued: its three bf16 terms make every product the f32 one, so
+    the kernel stands where f32 sums in another order put it (well under a
+    single bf16 rounding of the weights, which the second assert shows at
+    this bar), and a second launch is bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(352)
+    x = torch.randint(0, 256, (2, 352, 1216, 3), generator=g, device=card, dtype=torch.uint8).permute(0, 3, 1, 2)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    wt, bias, sc = r(32, 3, 3, 3) * 27 ** -0.5 / 255, r(32) * 0.1, r(32, 3, 1, 1) * 3 ** -0.5 / 255
+    got, again = (ops.conv3x3([x], wt, bias, relu=True, shortcut=sc, out_dtype=BF16) for _ in range(2))
+    want = ops.conv3x3_plain([x], wt, bias, relu=True, shortcut=sc, out_dtype=BF16)
+    assert _close(got, want, 2e-4) and torch.equal(got, again)
+    rounded = ops.conv3x3_plain([x], wt.to(BF16).float(), bias, relu=True, shortcut=sc.to(BF16).float(),
+                                out_dtype=BF16)
+    assert not _close(rounded, want, 2e-4)
