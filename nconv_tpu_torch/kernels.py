@@ -23,7 +23,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
@@ -46,7 +45,6 @@ LAUNCHES: dict[str, int] = {
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
-build_seconds: float | None = None  # wall time of this process's build, if it built
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -106,13 +104,20 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels if this source tree has no library yet; returns
-    the library's path."""
-    global build_seconds
+    """Compile the kernels if this source tree has no library yet, inside
+    a ``kernels.build`` span of :mod:`.runtime.tracing`; returns the
+    library's path."""
     so = BUILD_DIR / f"libnconv_tpu_torch_{_digest()}.so"
     if so.exists():
         return so
-    t0 = time.perf_counter()
+    from .runtime import tracing
+
+    with tracing.span("kernels.build"):
+        _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs, procs = [], []
@@ -140,8 +145,6 @@ def build() -> Path:
     os.replace(tmp, so)  # atomic: a concurrent build sees a whole file
     for obj in objs:
         obj.unlink(missing_ok=True)
-    build_seconds = time.perf_counter() - t0
-    return so
 
 
 def lib() -> ctypes.CDLL:

@@ -25,6 +25,7 @@ static buffers are the port's form of the JAX engine's ``donate``.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 import warnings
@@ -39,6 +40,7 @@ import torch
 from .. import kernels
 from ..data import native
 from ..models import GuidedDepthNet, maybe_fold, resolve_device
+from . import tracing
 
 # wire dtypes as the device holds them: uint16 as int16 (decoded & 0xFFFF)
 _TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.int16,
@@ -157,6 +159,16 @@ class StreamingEngine:
     The wire options are the JAX engine's, with the same names and
     defaults. On the card, construction warms every kernel form and
     captures the frame as one CUDA graph. One caller at a time.
+
+    While :mod:`.tracing` is on, each frame (an id from one sequence of the
+    engine) leaves the spans ``engine.request`` (a call),
+    ``engine.stage`` and within it ``engine.slot_wait``, one
+    ``engine.encode`` a stream and ``engine.h2d``, ``engine.replay``; in
+    :meth:`run` also ``engine.await_staged`` and ``engine.consumer``; on the
+    card the device intervals ``device.h2d`` (the wire's copy) and
+    ``device.frame`` (input copy, replay, output copies); and the counters
+    ``engine.dispatched``, ``engine.await_blocked`` and
+    ``engine.slot_blocked``.
     """
 
     DEPTH_SCALE = 256.0
@@ -233,7 +245,8 @@ class StreamingEngine:
         self._rgb_names = [n for n, _, _ in rgb]
         self._depth_names = [n for n, _, _ in depth]
         self._ring: list[_Slot] = []
-        self._next = 0
+        self._seq = itertools.count()  # frame ids
+        self._staged_fid = None  # the id of the last stage(), taken by the next replay()
         self._graph = None
         self.capture_counts: dict[str, int] = {}
         if self.device.type == "cuda":
@@ -276,44 +289,53 @@ class StreamingEngine:
             raise ValueError(f"{what} frame {a.shape} != {(1, self.height, self.width, channels)}")
         return a
 
-    def _encode(self, frame, arrays) -> None:
+    def _encode(self, frame, arrays, fid: int) -> None:
         """Write the wire form of host ``frame`` into a slot's ``arrays``."""
         for s in (0, 1):
-            rgb, depth = frame[2 * s], frame[2 * s + 1]
-            if isinstance(rgb, tuple):  # pre-encoded (y, u, v)
-                for name, plane in zip(self._rgb_names, rgb):
-                    arrays[(s, name)][0] = plane
-            else:
-                a = self._frame_array(rgb, 3, "rgb")
-                if self.rgb_wire_dtype == np.uint8 and a.dtype != np.uint8:
-                    a = np.clip(a, 0, 255).astype(np.uint8)
-                if self.rgb_wire == "dense":
-                    arrays[(s, "rgb")][...] = a
+            with tracing.span("engine.encode", fid):
+                rgb, depth = frame[2 * s], frame[2 * s + 1]
+                if isinstance(rgb, tuple):  # pre-encoded (y, u, v)
+                    for name, plane in zip(self._rgb_names, rgb):
+                        arrays[(s, name)][0] = plane
                 else:
-                    enc = native.encode_yuv420 if self.rgb_wire == "yuv420" else native.encode_yuv422
-                    enc(a[0], out=tuple(arrays[(s, n)][0] for n in self._rgb_names))
-            if isinstance(depth, tuple):  # pre-encoded (idx, val)
-                arrays[(s, "idx")][...], arrays[(s, "val")][...] = depth
-            elif self.depth_wire == "coo":
-                self._encode_coo(self._frame_array(depth, 1, "depth"), (arrays[(s, "idx")], arrays[(s, "val")]))
-            elif self.depth_wire_dtype == np.uint16 and np.asarray(depth).dtype != np.uint16:
-                native.encode_depth_wire(self._frame_array(depth, 1, "depth"), self.DEPTH_SCALE,
-                                         out=arrays[(s, "depth")])
-            else:
-                arrays[(s, "depth")][...] = self._frame_array(depth, 1, "depth")
+                    a = self._frame_array(rgb, 3, "rgb")
+                    if self.rgb_wire_dtype == np.uint8 and a.dtype != np.uint8:
+                        a = np.clip(a, 0, 255).astype(np.uint8)
+                    if self.rgb_wire == "dense":
+                        arrays[(s, "rgb")][...] = a
+                    else:
+                        enc = native.encode_yuv420 if self.rgb_wire == "yuv420" else native.encode_yuv422
+                        enc(a[0], out=tuple(arrays[(s, n)][0] for n in self._rgb_names))
+                if isinstance(depth, tuple):  # pre-encoded (idx, val)
+                    arrays[(s, "idx")][...], arrays[(s, "val")][...] = depth
+                elif self.depth_wire == "coo":
+                    self._encode_coo(self._frame_array(depth, 1, "depth"), (arrays[(s, "idx")], arrays[(s, "val")]))
+                elif self.depth_wire_dtype == np.uint16 and np.asarray(depth).dtype != np.uint16:
+                    native.encode_depth_wire(self._frame_array(depth, 1, "depth"), self.DEPTH_SCALE,
+                                             out=arrays[(s, "depth")])
+                else:
+                    arrays[(s, "depth")][...] = self._frame_array(depth, 1, "depth")
 
-    def _stage_into(self, slot: _Slot, frame) -> _Slot:
-        """Encode ``frame`` into ``slot`` and start its copy to the device,
-        once the slot's previous copies are done."""
+    def _stage_into(self, slot: _Slot, frame, fid: int) -> _Slot:
+        """Encode ``frame`` (id ``fid``) into ``slot`` and start its copy to
+        the device, once the slot's previous copies are done."""
         card = self.device.type == "cuda"
-        if card:
-            slot.copied.synchronize()
-        self._encode(frame, slot.arrays)
-        if card:
-            with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream):
-                self._copy_stream.wait_event(slot.consumed)
-                slot.dev.copy_(slot.host, non_blocking=True)
-                slot.copied.record(self._copy_stream)
+        with tracing.span("engine.stage", fid):
+            with tracing.span("engine.slot_wait", fid):
+                if card:
+                    if tracing.on() and not slot.copied.query():
+                        tracing.count("engine.slot_blocked")
+                    slot.copied.synchronize()
+            self._encode(frame, slot.arrays, fid)
+            with tracing.span("engine.h2d", fid):
+                if card:
+                    copy = self._copy_stream
+                    with torch.cuda.device(self.device), torch.cuda.stream(copy):
+                        copy.wait_event(slot.consumed)
+                        interval = tracing.device_begin(copy)
+                        slot.dev.copy_(slot.host, non_blocking=True)
+                        tracing.device_end(interval, copy, "device.h2d", fid)
+                        slot.copied.record(copy)
         return slot
 
     def _slots(self, n: int) -> list[_Slot]:
@@ -325,7 +347,8 @@ class StreamingEngine:
         """The frame's wire bytes as a new uint8 tensor on the engine's
         device, ready on the current stream (for :meth:`forward_staged` and
         :meth:`replay`)."""
-        slot = self._stage_into(self._slots(1)[0], (rgb0, depth0, rgb1, depth1))
+        self._staged_fid = fid = next(self._seq)
+        slot = self._stage_into(self._slots(1)[0], (rgb0, depth0, rgb1, depth1), fid)
         if self.device.type != "cuda":
             return slot.host.clone()
         stream = torch.cuda.current_stream(self.device)
@@ -381,29 +404,41 @@ class StreamingEngine:
     def replay(self, wire: torch.Tensor):
         """The frame on a staged wire (:meth:`stage`): on the card a copy
         into the graph's input, one replay and fresh outputs; on the CPU
-        :meth:`forward_staged`."""
-        if self._graph is None:
-            return self.forward_staged(wire)
-        with torch.cuda.device(self.device):
-            self._static_in.copy_(wire)
-            self._graph.replay()
-            return tuple(o.clone() for o in self._static_out)
+        :meth:`forward_staged`. Its spans take the frame id of the last
+        :meth:`stage` not yet replayed, else a new one."""
+        fid, self._staged_fid = self._staged_fid, None
+        return self._replay(wire, next(self._seq) if fid is None else fid)
 
-    def _dispatch(self, slot: _Slot):
-        """The frame on ``slot``'s wire, once its copy is done."""
+    def _replay(self, wire: torch.Tensor, fid: int):
+        with tracing.span("engine.replay", fid):
+            if self._graph is None:
+                return self.forward_staged(wire)
+            with torch.cuda.device(self.device):
+                stream = torch.cuda.current_stream(self.device)
+                interval = tracing.device_begin(stream)
+                self._static_in.copy_(wire)
+                self._graph.replay()
+                out = tuple(o.clone() for o in self._static_out)
+                tracing.device_end(interval, stream, "device.frame", fid)
+                return out
+
+    def _dispatch(self, slot: _Slot, fid: int):
+        """The frame (id ``fid``) on ``slot``'s wire, once its copy is done."""
+        tracing.count("engine.dispatched")
         if self._graph is None:
-            return self.replay(slot.dev)
+            return self._replay(slot.dev, fid)
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(slot.copied)
-        out = self.replay(slot.dev)
+        out = self._replay(slot.dev, fid)
         slot.consumed.record(stream)
         return out
 
     def __call__(self, rgb0, depth0, rgb1, depth1):
-        ring = self._slots(2)
-        slot = ring[self._next % len(ring)]
-        self._next += 1
-        return self._dispatch(self._stage_into(slot, (rgb0, depth0, rgb1, depth1)))
+        fid = next(self._seq)
+        with tracing.span("engine.request", fid):
+            ring = self._slots(2)
+            slot = ring[fid % len(ring)]
+            return self._dispatch(self._stage_into(slot, (rgb0, depth0, rgb1, depth1), fid), fid)
 
     def warmup(self) -> None:
         """One request of zero frames, waited for."""
@@ -446,17 +481,24 @@ class StreamingEngine:
                         break
                     # slot n's last frame (n - len(ring)) was dispatched:
                     # at most stage_ahead frames wait in `staged`
-                    staged.append(pool.submit(self._stage_into, ring[n % len(ring)], frame))
+                    fid = next(self._seq)
+                    staged.append((fid, pool.submit(self._stage_into, ring[n % len(ring)], frame, fid)))
                     n += 1
                 if staged:
-                    inflight.append(self._dispatch(staged.popleft().result()))
+                    fid, future = staged.popleft()
+                    if tracing.on() and not future.done():
+                        tracing.count("engine.await_blocked")
+                    with tracing.span("engine.await_staged", fid):
+                        slot = future.result()
+                    inflight.append((fid, self._dispatch(slot, fid)))
                 elif not inflight:
                     break
                 while len(inflight) > depth or (exhausted and not staged and inflight):
-                    out = inflight.popleft()
+                    fid, out = inflight.popleft()
                     if sink is not None:
                         sink(*out)
-                    yield out
+                    with tracing.span("engine.consumer", fid):
+                        yield out
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 

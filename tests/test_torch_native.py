@@ -8,7 +8,9 @@ the depth and COO encoders
 bitwise ``runtime/wires.py``, the YUV encoders bitwise the JAX package's C
 encoders and within one step of ``wires.py``; a failed build raises. No
 host timing is asserted."""
+import fcntl
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +19,30 @@ from nconv_tpu.data import native as jnative
 from nconv_tpu_torch.data import io, native, png
 from nconv_tpu_torch.runtime import wires
 from test_torch_data import write_filtered
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library():
+    """The JAX package's C library, built and loaded afresh in this process
+    under an exclusive lock on ``build/libdepthio.lock``.
+
+    ``nconv_tpu.data.native`` runs ``make`` straight into the library's path,
+    and ``tests/test_native.py`` loads it while it is collected. Under
+    pytest-xdist every worker collects at once, so a worker can load the file
+    while another's linker is still writing it ("file too short"), and its
+    loader then stays failed for the session and falls back to other
+    readers. The loader's state is reset here, so this module compares with
+    the C library whatever happened during collection."""
+    lock = Path(__file__).resolve().parents[1] / "build" / "libdepthio.lock"
+    lock.parent.mkdir(exist_ok=True)
+    with pytest.MonkeyPatch.context() as mp, open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_build_failed", False)
+        jnative.available()
+        fcntl.flock(f, fcntl.LOCK_UN)
+        yield
+
 
 def filtered_stream(rng, height, stride, kinds):
     """A decompressed PNG stream: each row a filter byte from ``kinds``,
