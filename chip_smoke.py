@@ -2322,8 +2322,11 @@ def native_phase(state, frames):
     f = frames[0]
     rgb_u8, depth = f[0], f[1]
     cap = (H * W // 8 + 511) // 512 * 512
+    frame_out = (np.empty((1, H, W, 3), np.uint8), np.empty((1, H, W, 1), np.uint16)) * 2
     cases = {
         "depth_wire": (lambda m: m.encode_depth_wire(depth[None, :, :, None]), 0),
+        "frame_dense": (lambda m: m.encode_frame_dense(rgb_u8, depth, f[2], f[3], out=tuple(
+            np.empty_like(a) for a in frame_out)), 0),
         "depth_coo": (lambda m: m.encode_depth_coo(depth, cap), 0),
         "yuv420": (lambda m: m.encode_yuv420(rgb_u8), 1),
         "yuv422": (lambda m: m.encode_yuv422(rgb_u8), 1),
@@ -2336,14 +2339,15 @@ def native_phase(state, frames):
         ok = worst <= steps and (name != "depth_coo" or c[2] == p[2])
         enc[name] = dict(c_ms=host_ms(lambda: fn(native)), plain_ms=host_ms(lambda: fn(wires)), max_step=worst)
         log(f"[{'ok' if ok else 'FAIL'}] C encoder {name} against wires.py at {H}x{W}: largest difference "
-            f"{worst} step(s) (allowed {steps}); host ms a stream, median of {REPS}: C {enc[name]['c_ms']:.3f}, "
+            f"{worst} step(s) (allowed {steps}); host ms a call (a stream; frame_dense: both), median of {REPS}: "
+            f"C {enc[name]['c_ms']:.3f}, "
             f"numpy {enc[name]['plain_ms']:.3f}")
         if not ok:
             raise SystemExit(f"chip_smoke: the C {name} encoder differs from its plain version")
     out["encoders"] = enc
 
-    plain = {n: getattr(wires, n) for n in ("encode_depth_wire", "encode_depth_coo", "encode_yuv420",
-                                            "encode_yuv422")}
+    plain = {n: getattr(wires, n) for n in ("encode_depth_wire", "encode_depth_coo", "encode_yuv420", "encode_yuv422")}
+    plain["encode_frame_dense"] = lambda *a, threads=None, **kw: wires.encode_frame_dense(*a, **kw)  # serial
     clocks = {}
     for label, sched, kw in (("f32 dense", "f32", {}), ("mixed dense", "mixed", {}),
                              ("mixed yuv420+coo", "mixed", dict(rgb_wire="yuv420", depth_wire="coo"))):

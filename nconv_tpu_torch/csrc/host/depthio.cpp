@@ -10,11 +10,21 @@
 //
 // Built with the host compiler, not nvcc: g++ -O3 -shared -fPIC -std=c++17.
 // ctypes releases the GIL around every call, so a thread pool decodes in
-// parallel.
+// parallel. One entry, nct_encode_frame_dense, is parallel inside: it cuts a
+// two-stream frame into row bands and runs them on a pool of std::threads
+// that lives as long as the process (the C++ runtime's threads; nothing else
+// is linked).
 
+#include <unistd.h>
+
+#include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <mutex>
+#include <system_error>
+#include <thread>
 
 namespace {
 
@@ -42,6 +52,139 @@ inline uint8_t rgb_sample(const uint8_t* row, long i, int ch, int ctype, int dep
     case 4: return row[2 * i * bytes];
     default: return row[(4 * i + ch) * bytes];  // 6
   }
+}
+
+inline void encode_depth(const float* depth, uint16_t* out, long n, float scale) {
+  for (long i = 0; i < n; ++i) {
+    float v = depth[i] * scale;
+    if (v < 0.0f) v = 0.0f;
+    if (v > 65535.0f) v = 65535.0f;
+    out[i] = static_cast<uint16_t>(v);
+  }
+}
+
+// One dense two-stream frame: item k < 2 * bands is row band k / 2 of
+// stream k % 2, its RGB rows copied and its depth rows encoded.
+struct DenseFrame {
+  const uint8_t* rgb[2];
+  const float* depth[2];
+  uint8_t* rgb_out[2];
+  uint16_t* depth_out[2];
+  long height, width;
+  int bands;
+  float scale;
+
+  void item(int k) const {
+    const int s = k % 2;
+    const long b = k / 2, y0 = height * b / bands, y1 = height * (b + 1) / bands;
+    const long px = y0 * width, n = (y1 - y0) * width;
+    std::memcpy(rgb_out[s] + 3 * px, rgb[s] + 3 * px, 3 * (size_t)n);
+    encode_depth(depth[s] + px, depth_out[s] + px, n, scale);
+  }
+};
+
+// Worker threads that take the items of one frame at a time beside the
+// calling thread, each item as it comes free, so that a worker that wakes
+// late takes fewer. Workers are detached and wait on a condition variable
+// between frames; the pool is never destroyed, so nothing joins them when
+// the process exits. A forked child has none of its parent's threads: the
+// first call in a new process builds a new pool (the old one is left as
+// it was; its locks may be held by threads the child does not have).
+class Pool {
+ public:
+  explicit Pool(pid_t pid) : pid(pid) {}
+
+  const pid_t pid;
+
+  // Every item of `frame` on the calling thread and at most threads - 1
+  // workers, returning once all are done. A call that finds the pool busy
+  // (another thread's frame) runs its items alone.
+  void run(const DenseFrame& frame, int threads) {
+    const int n = 2 * frame.bands;
+    std::unique_lock<std::mutex> call(call_, std::try_to_lock);
+    if (call.owns_lock() && threads > 1) grow(threads - 1);
+    if (!call.owns_lock() || started_ == 0 || threads < 2) {
+      for (int k = 0; k < n; ++k) frame.item(k);
+      return;
+    }
+    {
+      std::lock_guard<std::mutex> lk(m_);
+      frame_ = &frame;
+      n_ = n;
+      want_ = threads - 1;
+      next_.store(0, std::memory_order_relaxed);
+      ++generation_;
+    }
+    wake_.notify_all();
+    for (int k; (k = next_.fetch_add(1)) < n;) frame.item(k);
+    // Every item is taken; the workers still in one end within an item's
+    // time, so wait for them here rather than sleep and be woken. Yield,
+    // not spin: a worker woken onto this thread's core runs only when it
+    // gives the core up.
+    for (;;) {
+      while (busy_.load(std::memory_order_acquire) != 0) std::this_thread::yield();
+      std::lock_guard<std::mutex> lk(m_);
+      if (busy_.load(std::memory_order_acquire) == 0) {
+        frame_ = nullptr;  // a worker that wakes from here on finds no frame
+        n_ = 0;
+        return;
+      }
+    }
+  }
+
+ private:
+  void grow(int workers) {
+    while (started_ < workers) {
+      try {
+        std::thread(&Pool::work, this).detach();
+      } catch (const std::system_error&) {
+        return;  // no more threads to be had: run with those there are
+      }
+      ++started_;
+    }
+  }
+
+  void work() {
+    unsigned long seen = 0;
+    std::unique_lock<std::mutex> lk(m_);
+    for (;;) {
+      wake_.wait(lk, [&] { return generation_ != seen; });
+      seen = generation_;
+      // A frame's items are taken only by workers counted in busy_, which
+      // join under m_ while frame_ is set: run() clears it under m_ once
+      // busy_ is 0, so no worker holds an item of a frame that returned.
+      if (frame_ == nullptr || busy_.load(std::memory_order_relaxed) >= want_) continue;
+      const DenseFrame* frame = frame_;
+      const int n = n_;
+      busy_.fetch_add(1, std::memory_order_relaxed);
+      lk.unlock();
+      for (int k; (k = next_.fetch_add(1)) < n;) frame->item(k);
+      busy_.fetch_sub(1, std::memory_order_release);
+      lk.lock();
+    }
+  }
+
+  std::mutex call_;  // one frame at a time
+  int started_ = 0;  // workers started (under call_)
+  std::mutex m_;
+  std::condition_variable wake_;
+  const DenseFrame* frame_ = nullptr;  // these three and generation_ under m_
+  int n_ = 0, want_ = 0;
+  unsigned long generation_ = 0;
+  std::atomic<int> busy_{0};  // workers in the frame: joined under m_, left by themselves
+  std::atomic<int> next_{0};
+};
+
+std::atomic<Pool*> g_pool{nullptr};
+
+Pool* pool() {
+  const pid_t pid = getpid();
+  Pool* p = g_pool.load(std::memory_order_acquire);
+  if (p != nullptr && p->pid == pid) return p;
+  Pool* fresh = new Pool(pid);
+  if (g_pool.compare_exchange_strong(p, fresh, std::memory_order_acq_rel)) return fresh;
+  delete fresh;  // another thread of this process built one first
+  return p;
 }
 
 }  // namespace
@@ -131,12 +274,24 @@ void nct_apply_mask(float* depth, const float* mask, long n) {
 // float depth (meters) -> uint16 wire: d * scale clipped to [0, 65535],
 // truncated.
 void nct_encode_depth_wire(const float* depth, uint16_t* out, long n, float scale) {
-  for (long i = 0; i < n; ++i) {
-    float v = depth[i] * scale;
-    if (v < 0.0f) v = 0.0f;
-    if (v > 65535.0f) v = 65535.0f;
-    out[i] = static_cast<uint16_t>(v);
-  }
+  encode_depth(depth, out, n, scale);
+}
+
+// Both streams' dense wire in one call: each (height, width, 3) uint8 RGB
+// frame copied, each (height, width) float depth encoded as by
+// nct_encode_depth_wire, bitwise. Each stream is cut into `bands` row bands
+// (at least 1), taken by the calling thread and at most threads - 1
+// workers of the process's pool (threads 1-64); returns once every band is
+// written. Returns 0, or -1 for a count out of range.
+int nct_encode_frame_dense(const uint8_t* rgb0, const float* depth0, const uint8_t* rgb1, const float* depth1,
+                           uint8_t* rgb_out0, uint16_t* depth_out0, uint8_t* rgb_out1, uint16_t* depth_out1,
+                           int height, int width, float scale, int bands, int threads) {
+  if (bands < 1 || threads < 1 || threads > 64) return -1;
+  if (bands > height) bands = height > 0 ? height : 1;  // a band of no rows does nothing
+  const DenseFrame frame{{rgb0, rgb1}, {depth0, depth1}, {rgb_out0, rgb_out1}, {depth_out0, depth_out1},
+                         height, width, bands, scale};
+  pool()->run(frame, threads);
+  return 0;
 }
 
 // COO depth wire in one pass: (flat index, d * scale clipped) of the first

@@ -11,7 +11,12 @@ links nothing but the C++ runtime: inflate stays in Python's ``zlib``, and
 the C side does what is slow in Python, the row filters and the sample
 conversions. There is no fallback: a failed build raises, and so does every
 reader and encoder after it. ctypes releases the GIL around each call, so a
-thread pool decodes in parallel.
+thread pool decodes in parallel. :func:`encode_frame_dense` is parallel
+inside the library: one call encodes both streams' dense wire in row bands
+on a pool of C++ threads kept for the life of the process, as many as
+:func:`encode_threads` reads from the process's CPU affinity. Its workers
+sleep between frames and are never joined (a process exits at once); a
+forked child builds a pool of its own at its first call.
 
 The plain versions stay beside it, for the tests: :func:`.png._unfilter`,
 :meth:`.png.PNG.array` and :meth:`.png.PNG.rgb`, and ``runtime/wires.py``.
@@ -51,6 +56,7 @@ _SIGNATURES = {  # name: (argtypes, restype)
     "nct_crop_top_center": ([_f32, _I, _I, _I, _I, _I, _f32], None),
     "nct_apply_mask": ([_f32, _f32, _L], None),
     "nct_encode_depth_wire": ([_f32, _u16, _L, _F], None),
+    "nct_encode_frame_dense": ([_u8, _f32, _u8, _f32, _u8, _u16, _u8, _u16, _I, _I, _F, _I, _I], _I),
     "nct_encode_depth_coo": ([_f32, _L, _L, _F, _i32, _u16], _L),
     "nct_encode_yuv420": ([_u8, _I, _I, _u8, _u8, _u8], None),
     "nct_encode_yuv422": ([_u8, _I, _I, _u8, _u8, _u8], None),
@@ -180,6 +186,49 @@ def encode_depth_wire(depth: np.ndarray, scale: float = 256.0, out: np.ndarray |
     d = np.ascontiguousarray(depth, np.float32)
     out = _out(out, d.shape, np.uint16)
     lib().nct_encode_depth_wire(d, out, d.size, scale)
+    return out
+
+
+ENCODE_THREADS = 4  # most threads on one frame (the thread scan in PERF.md)
+BAND_ROWS = 16  # rows of a band: a thread that wakes late takes fewer
+
+
+def encode_threads() -> int:
+    """Threads that :func:`encode_frame_dense` runs a frame on, the caller's
+    included: one less than the CPUs the process may run on, at most
+    :data:`ENCODE_THREADS`, at least 1 (the caller alone)."""
+    return max(1, min(ENCODE_THREADS, len(os.sched_getaffinity(0)) - 1))
+
+
+def _frame_part(a: np.ndarray, size: int, dtype, what: str) -> np.ndarray:
+    if a.dtype != dtype or a.size != size or not a.flags.c_contiguous:
+        raise ValueError(f"{what} {a.shape} {a.dtype} != contiguous {size} x {np.dtype(dtype)}")
+    return a
+
+
+def encode_frame_dense(rgb0: np.ndarray, depth0: np.ndarray, rgb1: np.ndarray, depth1: np.ndarray,
+                       out: tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray], scale: float = 256.0,
+                       threads: int | None = None, bands: int | None = None) -> tuple[np.ndarray, ...]:
+    """Both streams' dense wire in one call, into ``out`` = (RGB 0, depth 0,
+    RGB 1, depth 1): each (..., H, W, 3) uint8 RGB frame copied, each float
+    depth of H x W pixels encoded as :func:`encode_depth_wire`, bitwise the
+    two per stream. Each stream is cut into ``bands`` row bands (default
+    :data:`BAND_ROWS` rows each), taken as they come free by the calling
+    thread and ``threads - 1`` threads of the library's pool (default
+    :func:`encode_threads`). Returns ``out``."""
+    rgb = [np.ascontiguousarray(rgb0), np.ascontiguousarray(rgb1)]
+    h, w = rgb[0].shape[-3:-1] if rgb[0].ndim >= 3 else (0, 0)
+    for a in rgb:
+        _frame_part(a, 3 * h * w, np.uint8, "rgb")
+        if a.shape[-1] != 3:
+            raise ValueError(f"rgb {a.shape} is not (..., H, W, 3)")
+    depth = [_frame_part(np.ascontiguousarray(d, np.float32), h * w, np.float32, "depth") for d in (depth0, depth1)]
+    for a, dt in zip(out, (np.uint8, np.uint16) * 2):
+        _frame_part(a, (3 if dt == np.uint8 else 1) * h * w, dt, "out")
+    threads = encode_threads() if threads is None else threads
+    bands = max(1, -(-h // BAND_ROWS)) if bands is None else bands
+    if lib().nct_encode_frame_dense(rgb[0], depth[0], rgb[1], depth[1], *out, h, w, scale, bands, threads):
+        raise ValueError(f"bands {bands} (at least 1), threads {threads} (1-64)")
     return out
 
 

@@ -24,7 +24,9 @@ counters, the share of dispatches that waited for a staging worker, the
 ten longest gaps between device frames with the span the host was in,
 and device frames a second, second by second; ``kernels_build_s`` where
 the kernels were built; then, over 100 requests of one client, each
-span's p50 ms a request (``request_ms_p50``). With ``--chrome PATH`` the
+span's p50 ms a request (``request_ms_p50``) and each counter a request
+(``request_counts``: ``engine.encode_parallel`` is 1 where the frame was
+encoded by the parallel call). With ``--chrome PATH`` the
 frames also run under ``torch.profiler`` (every thread's ranges) and PATH
 gets one chrome trace: the device's events, every thread's engine spans
 and the tracer's device intervals.
@@ -178,6 +180,13 @@ def request_report(spans) -> dict:
     return {name: statistics.median(v.values()) for name, v in sorted(per_name.items())}
 
 
+def request_counts(spans, counters: dict) -> dict:
+    """Each of ``counters`` over the requests (``engine.request`` spans) in
+    ``spans``: the count a request."""
+    n = sum(s.name == "engine.request" for s in spans)
+    return {name: c / n for name, c in sorted(counters.items())} if n else {}
+
+
 def _profiler_all_threads():
     """``torch.profiler.profile`` of the device and every thread's ranges."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -236,6 +245,7 @@ def stream(dtype, h, w, frames: int, chrome: str | None = None) -> dict:
         torch.cuda.synchronize()
     tracing.disable()
     out["request_ms_p50"] = request_report(tracing.collected())
+    out["request_counts"] = request_counts(tracing.collected(), tracing.counters())
     return out
 
 

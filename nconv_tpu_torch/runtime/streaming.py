@@ -1,7 +1,8 @@
 """Streaming inference engine: two camera streams at batch 1.
 
   host frames (HWC uint8 or float RGB, HW float sparse depth)
-    -> wire encode on the host (the C encoders of :mod:`..data.native`;
+    -> wire encode on the host (the C encoders of :mod:`..data.native`, a
+       request's dense uint8 frame in row bands on the C library's threads;
        :mod:`.wires` holds their plain versions) straight into a staging slot
        (pinned on the card): RGB dense uint8 / float32, or YUV 4:2:0 / 4:2:2
        planes; depth dense uint16 fixed point clip(d * 256, 0, 65535)
@@ -160,15 +161,22 @@ class StreamingEngine:
     defaults. On the card, construction warms every kernel form and
     captures the frame as one CUDA graph. One caller at a time.
 
+    A call and :meth:`stage` encode a frame on the dense uint8 RGB and
+    uint16 depth wires, fed uint8 RGB and float depth, in one call of the C
+    library that splits both streams into row bands across its threads
+    (:func:`..data.native.encode_frame_dense`); every other wire and input,
+    and :meth:`run`'s staging workers, encode stream by stream.
+
     While :mod:`.tracing` is on, each frame (an id from one sequence of the
     engine) leaves the spans ``engine.request`` (a call),
-    ``engine.stage`` and within it ``engine.slot_wait``, one
-    ``engine.encode`` a stream and ``engine.h2d``, ``engine.replay``; in
-    :meth:`run` also ``engine.await_staged`` and ``engine.consumer``; on the
-    card the device intervals ``device.h2d`` (the wire's copy) and
-    ``device.frame`` (input copy, replay, output copies); and the counters
-    ``engine.dispatched``, ``engine.await_blocked`` and
-    ``engine.slot_blocked``.
+    ``engine.stage`` and within it ``engine.slot_wait``, ``engine.encode``
+    (one around the parallel call, else one a stream) and ``engine.h2d``,
+    ``engine.replay``; in :meth:`run` also ``engine.await_staged`` and
+    ``engine.consumer``; on the card the device intervals ``device.h2d``
+    (the wire's copy) and ``device.frame`` (input copy, replay, output
+    copies); and the counters ``engine.encode_parallel`` (a frame encoded
+    by the parallel call), ``engine.dispatched``, ``engine.await_blocked``
+    and ``engine.slot_blocked``.
     """
 
     DEPTH_SCALE = 256.0
@@ -227,6 +235,7 @@ class StreamingEngine:
         self.coo_dropped_points = 0  # over-capacity points lost
         self._coo_warned = False
         self._lock = threading.Lock()  # the COO count: staging workers share it
+        self._encode_threads = native.encode_threads()  # a request's encode, from the CPU affinity
         # BT.601 inverse constants rounded to the RGB dtype, as the JAX
         # decode's weakly typed scalars are
         self._yuv_consts = [torch.tensor(c, dtype=self.rgb_dtype).item() for c in (1.402, 0.344136, 0.714136, 1.772)]
@@ -289,8 +298,29 @@ class StreamingEngine:
             raise ValueError(f"{what} frame {a.shape} != {(1, self.height, self.width, channels)}")
         return a
 
-    def _encode(self, frame, arrays, fid: int) -> None:
-        """Write the wire form of host ``frame`` into a slot's ``arrays``."""
+    def _dense_u8_frame(self, frame) -> bool:
+        """Whether :meth:`_encode` takes ``frame`` in one parallel call: the
+        dense uint8 RGB and uint16 depth wires, fed uint8 RGB and float
+        depth arrays in both streams."""
+        return (self.rgb_wire == "dense" and self.rgb_wire_dtype == np.uint8 and self.depth_wire == "dense"
+                and self.depth_wire_dtype == np.uint16
+                and all(isinstance(a, np.ndarray) and a.dtype == np.uint8 for a in frame[0::2])
+                and all(isinstance(d, np.ndarray) and d.dtype.kind == "f" for d in frame[1::2]))
+
+    def _encode(self, frame, arrays, fid: int, parallel: bool) -> None:
+        """Write the wire form of host ``frame`` into a slot's ``arrays``:
+        with ``parallel`` and the dense uint8 wire, both streams in one call
+        of :func:`..data.native.encode_frame_dense` (row bands on the C
+        library's threads), else stream by stream."""
+        if parallel and self._dense_u8_frame(frame):
+            with tracing.span("engine.encode", fid):
+                tracing.count("engine.encode_parallel")
+                native.encode_frame_dense(
+                    self._frame_array(frame[0], 3, "rgb"), self._frame_array(frame[1], 1, "depth"),
+                    self._frame_array(frame[2], 3, "rgb"), self._frame_array(frame[3], 1, "depth"),
+                    out=tuple(arrays[(s, n)] for s in (0, 1) for n in ("rgb", "depth")), scale=self.DEPTH_SCALE,
+                    threads=self._encode_threads)
+            return
         for s in (0, 1):
             with tracing.span("engine.encode", fid):
                 rgb, depth = frame[2 * s], frame[2 * s + 1]
@@ -316,9 +346,11 @@ class StreamingEngine:
                 else:
                     arrays[(s, "depth")][...] = self._frame_array(depth, 1, "depth")
 
-    def _stage_into(self, slot: _Slot, frame, fid: int) -> _Slot:
+    def _stage_into(self, slot: _Slot, frame, fid: int, parallel: bool = True) -> _Slot:
         """Encode ``frame`` (id ``fid``) into ``slot`` and start its copy to
-        the device, once the slot's previous copies are done."""
+        the device, once the slot's previous copies are done. ``parallel``
+        is false on :meth:`run`'s staging workers, which encode frames side
+        by side already."""
         card = self.device.type == "cuda"
         with tracing.span("engine.stage", fid):
             with tracing.span("engine.slot_wait", fid):
@@ -326,7 +358,7 @@ class StreamingEngine:
                     if tracing.on() and not slot.copied.query():
                         tracing.count("engine.slot_blocked")
                     slot.copied.synchronize()
-            self._encode(frame, slot.arrays, fid)
+            self._encode(frame, slot.arrays, fid, parallel)
             with tracing.span("engine.h2d", fid):
                 if card:
                     copy = self._copy_stream
@@ -482,7 +514,7 @@ class StreamingEngine:
                     # slot n's last frame (n - len(ring)) was dispatched:
                     # at most stage_ahead frames wait in `staged`
                     fid = next(self._seq)
-                    staged.append((fid, pool.submit(self._stage_into, ring[n % len(ring)], frame, fid)))
+                    staged.append((fid, pool.submit(self._stage_into, ring[n % len(ring)], frame, fid, False)))
                     n += 1
                 if staged:
                     fid, future = staged.popleft()

@@ -8,7 +8,9 @@ encoders round in integers and may differ by one step. Each takes an
 ``out=`` buffer, as the C ones do.
 
   * dense depth: ``uint16 = clip(d * scale, 0, 65535)`` truncated, the
-    KITTI 16-bit PNG encoding;
+    KITTI 16-bit PNG encoding; with a copy of the uint8 RGB frame, both
+    streams' dense wire at once (:func:`encode_frame_dense`, the C call's
+    plain version, serial);
   * COO depth: the first ``capacity`` nonzero points as (flat index int32,
     the same uint16 value), padding (0, 0); the count of all nonzero points
     comes back, so that a caller can count what was dropped;
@@ -33,6 +35,18 @@ def encode_depth_wire(depth: np.ndarray, scale: float = 256.0, out: np.ndarray |
     d = np.ascontiguousarray(depth, np.float32)
     out = _out(out, d.shape, np.uint16)
     out[...] = np.clip(d * scale, 0, 65535).astype(np.uint16)
+    return out
+
+
+def encode_frame_dense(rgb0: np.ndarray, depth0: np.ndarray, rgb1: np.ndarray, depth1: np.ndarray,
+                       out: tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+                       scale: float = 256.0) -> tuple[np.ndarray, ...]:
+    """Both streams' dense wire into ``out`` = (RGB 0, depth 0, RGB 1,
+    depth 1): each uint8 RGB frame copied, each depth encoded by
+    :func:`encode_depth_wire`."""
+    for s, (rgb, depth) in enumerate(((rgb0, depth0), (rgb1, depth1))):
+        out[2 * s][...] = np.reshape(rgb, out[2 * s].shape)
+        encode_depth_wire(np.reshape(depth, out[2 * s + 1].shape), scale, out=out[2 * s + 1])
     return out
 
 

@@ -4,10 +4,11 @@ numpy one of ``data/png.py`` for every filter, bit depth and channel count;
 every reader bitwise the plain decode of ``data/png.py`` (``PNG.rgb``,
 ``PNG.array``) and the JAX package's ``nconv_tpu.data.native`` on the same
 files, and the one that ``io``, the datasets' crop and the mask pool run;
-the depth and COO encoders
-bitwise ``runtime/wires.py``, the YUV encoders bitwise the JAX package's C
-encoders and within one step of ``wires.py``; a failed build raises. No
-host timing is asserted."""
+the depth and COO encoders bitwise ``runtime/wires.py``, and so is the
+two-stream dense frame encoder in row bands on the library's threads (its
+thread count from the CPU affinity; a process exits after its pool ran);
+the YUV encoders bitwise the JAX package's C encoders and within one step
+of ``wires.py``; a failed build raises. No host timing is asserted."""
 import fcntl
 import zlib
 from pathlib import Path
@@ -211,6 +212,86 @@ def test_depth_wire_encoder_is_bitwise_the_plain_one(scale):
     np.testing.assert_array_equal(out.reshape(d.shape[1:3]), jnative.encode_depth_wire(d[0, :, :, 0], scale))
     with pytest.raises(ValueError, match="out"):
         native.encode_depth_wire(d, scale, out=np.empty(d.shape, np.int32))
+
+
+def dense_slot(h, w):
+    """A staging slot's byte buffer of the engine's dense uint8 RGB and
+    uint16 depth wires, its four arrays at the offsets ``_Layout`` gives
+    them, in the order ``encode_frame_dense`` takes them."""
+    from nconv_tpu_torch.runtime.streaming import _Layout
+
+    layout = _Layout([("rgb", (1, h, w, 3), np.uint8), ("depth", (1, h, w, 1), np.uint16)])
+    buf = np.full(layout.nbytes, 0xAB, np.uint8)
+    views = layout.numpy_views(buf)
+    return buf, tuple(views[(s, n)] for s in (0, 1) for n in ("rgb", "depth")), layout
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("bands", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("h,w", [(37, 53), (1, 7), (5, 1216)])
+def test_frame_encoder_is_bitwise_the_per_stream_encoders(h, w, bands, threads):
+    """``encode_frame_dense`` in row bands that do not divide the height
+    (more bands than rows included), on one thread and on four, into a
+    slot at the engine's offsets: bitwise ``encode_depth_wire`` plus the
+    plain RGB copy, and ``wires.py``'s forms; nothing else of the slot
+    written."""
+    rng = np.random.default_rng(h * 100 + w + bands)
+    rgb = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)]
+    depth = []
+    for s in range(2):  # below 0, zero, above 65535 / 256 and random, no NaN
+        d = ((rng.random((h, w)) * 400 - 50) * (rng.random((h, w)) < 0.7)).astype(np.float32)
+        d.ravel()[: min(d.size, EDGES.size)] = EDGES[: d.size]
+        depth.append(d)
+    buf, out, layout = dense_slot(h, w)
+    assert native.encode_frame_dense(rgb[0], depth[0], rgb[1], depth[1], out, threads=threads, bands=bands) is out
+    _, plain, _ = dense_slot(h, w)
+    wires.encode_frame_dense(rgb[0], depth[0], rgb[1], depth[1], plain)
+    for s in (0, 1):
+        np.testing.assert_array_equal(out[2 * s][0], rgb[s])
+        np.testing.assert_array_equal(out[2 * s + 1], native.encode_depth_wire(depth[s][None, :, :, None]))
+        np.testing.assert_array_equal(out[2 * s + 1], wires.encode_depth_wire(depth[s][None, :, :, None]))
+        np.testing.assert_array_equal(out[2 * s], plain[2 * s])
+        np.testing.assert_array_equal(out[2 * s + 1], plain[2 * s + 1])
+    written = np.zeros(layout.nbytes, bool)
+    for off, shape, dt in layout.fields.values():
+        written[off:off + int(np.prod(shape)) * dt.itemsize] = True
+    assert (buf[~written] == 0xAB).all()  # the alignment padding is left alone
+
+
+def test_frame_encoder_refuses_what_it_cannot_take():
+    _, out, _ = dense_slot(4, 6)
+    rgb, d = np.zeros((4, 6, 3), np.uint8), np.zeros((4, 6), np.float32)
+    with pytest.raises(ValueError, match="bands"):
+        native.encode_frame_dense(rgb, d, rgb, d, out, bands=0)
+    with pytest.raises(ValueError, match="threads"):
+        native.encode_frame_dense(rgb, d, rgb, d, out, threads=0)
+    with pytest.raises(ValueError, match="depth"):
+        native.encode_frame_dense(rgb, d[:3], rgb, d, out)
+    with pytest.raises(ValueError, match="rgb"):
+        native.encode_frame_dense(rgb.astype(np.float32), d, rgb, d, out)
+    with pytest.raises(ValueError, match="out"):
+        native.encode_frame_dense(rgb, d, rgb, d, out[:3] + (np.zeros((1, 4, 6, 1), np.int32),))
+
+
+def test_the_interpreter_exits_after_the_pool_ran():
+    """The pool's workers are parked, never joined: a process whose pool
+    ran a frame exits at once."""
+    import subprocess
+    import sys
+
+    code = ("import numpy as np; from nconv_tpu_torch.data import native; "
+            "o = tuple(np.empty(s, t) for s, t in (((1, 4, 6, 3), np.uint8), ((1, 4, 6, 1), np.uint16)) * 2); "
+            "r, d = np.ones((4, 6, 3), np.uint8), np.ones((4, 6), np.float32); "
+            "native.encode_frame_dense(r, d, r, d, o, threads=4, bands=4); print(int(o[3].max()))")
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.split() == ["256"], proc.stderr
+
+
+@pytest.mark.parametrize("cpus,threads", [(1, 1), (2, 1), (3, 2), (4, 3), (5, 4), (8, 4), (64, 4)])
+def test_frame_encoder_threads_follow_the_cpu_affinity(monkeypatch, cpus, threads):
+    monkeypatch.setattr(native.os, "sched_getaffinity", lambda pid: set(range(cpus)))
+    assert native.encode_threads() == threads
 
 
 @pytest.mark.parametrize("capacity", [1024, 100])  # roomy and overflowing

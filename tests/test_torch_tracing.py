@@ -111,7 +111,8 @@ def test_a_request_nests_its_spans_under_one_frame(engine):
     (request,), (stage,), (replay,) = spans["engine.request"], spans["engine.stage"], spans["engine.replay"]
     assert request.parent == 0 and stage.parent == request.id and replay.parent == request.id
     inner = spans["engine.slot_wait"] + spans["engine.encode"] + spans["engine.h2d"]
-    assert [len(spans[n]) for n in ("engine.slot_wait", "engine.encode", "engine.h2d")] == [1, 2, 1]
+    # one engine.encode: the dense u8 frame is encoded by one parallel call
+    assert [len(spans[n]) for n in ("engine.slot_wait", "engine.encode", "engine.h2d")] == [1, 1, 1]
     assert all(s.parent == stage.id for s in inner)
     assert {s.frame for v in spans.values() for s in v} == {request.frame}
     assert {s.thread for v in spans.values() for s in v} == {threading.get_ident()}
@@ -127,7 +128,7 @@ def test_stage_then_replay_share_one_frame(engine):
     first, second = spans[:len(spans) // 2], spans[len(spans) // 2:]
     for half in (first, second):
         assert sorted(s.name for s in half) == sorted(
-            ["engine.stage", "engine.slot_wait", "engine.encode", "engine.encode", "engine.h2d", "engine.replay"])
+            ["engine.stage", "engine.slot_wait", "engine.encode", "engine.h2d", "engine.replay"])
         assert len({s.frame for s in half}) == 1
     assert first[0].frame != second[0].frame
     wire = engine.stage(*f[0])
@@ -176,7 +177,7 @@ def test_a_profiler_session_turns_the_tracer_on_and_names_its_ranges(engine):
     assert expected <= names
     assert expected == {s.name for s in tracing.collected()}
     engine(*frames(1)[0])  # off again
-    assert len(tracing.collected()) == 7
+    assert len(tracing.collected()) == 6  # one span of each name: the frame is encoded by one call
 
 
 def test_the_store_is_bounded_and_counts_what_it_drops(monkeypatch):
@@ -356,6 +357,15 @@ def test_request_report_sums_a_request_s_spans(engine):
     assert set(report) == {"engine.request", "engine.stage", "engine.slot_wait", "engine.encode", "engine.h2d",
                            "engine.replay"}
     assert report["engine.encode"] <= report["engine.stage"] <= report["engine.request"]
+
+
+def test_request_counts_give_each_counter_a_request(engine):
+    tracing.enable()
+    for f in frames(3):
+        engine(*f)
+    counts = profile.request_counts(tracing.collected(), tracing.counters())
+    assert counts == {"engine.dispatched": 1.0, "engine.encode_parallel": 1.0}
+    assert profile.request_counts([], {"engine.dispatched": 2}) == {}
 
 
 def test_stream_report_of_device_frames():
