@@ -11,7 +11,9 @@ control, the reference one precision below the configuration's put in the
 program's place (serving: every frame of the seed's ring; training: the
 first three steps), and for training the faults of half the batch left
 out and of each loss altered by 1%, planted in the reference put in the
-program's place; their smallest is a limit's upper end. Prints one JSON object a line; the
+program's place; their smallest is a limit's upper end. A cell whose loop
+is a loop file (``benchmark/loops/<loop>.py``) takes its control and faults
+from that file's ``control``. Prints one JSON object a line; the
 benchmark's own runs never run this.
 """
 from __future__ import annotations
@@ -30,6 +32,8 @@ from .run import run_cell
 
 
 def control_readings(cell, seed: int, device) -> dict:
+    if cell.traffic["loop"] not in cells.LOOPS:
+        return cell.loop_file().control(cell, seed, device)
     cfg, traffic = cell.config, cell.traffic
     correct = cfg["correct"]
     if cell.traffic["loop"] == "train":

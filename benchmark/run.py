@@ -55,13 +55,13 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device, started: f
     ``device``; returns the result line's object."""
     import torch
 
-    from . import cells, check, trace
+    from . import check, trace
     from .reference import precision
 
     precision.no_tf32()
     torch.set_num_threads(2)
     imported = time.time() - started
-    loop = cells.LOOPS[cell.traffic["loop"]](cell.config, cell.traffic, seed, device)
+    loop = cell.loop()(cell.config, cell.traffic, seed, device)
     setup_s = time.time() - started
     window = loop.window(seconds, trace_on)
     t_check = time.perf_counter()

@@ -2,11 +2,14 @@
 
 A cell is one entry of ``workloads``. Its configuration is the JSON file
 the configuration's ``file`` names; its traffic mix is
-``benchmark/traffic/<traffic>.json``; each per-layer metric it reports is a
-reader in ``benchmark/metrics/<metric name>.py`` (a function ``read(traced)``
-returning a number, or ``None`` where it finds nothing to read). All are
-looked up under one root, the checkout's, so a later cell, configuration,
-traffic mix or metric is a new file and a new entry, with no file edited.
+``benchmark/traffic/<traffic>.json``; its loop is the one the traffic names
+(``"loop"``): one of :data:`.cells.LOOPS`, or else a loop file
+``benchmark/loops/<loop>.py`` (:meth:`Cell.loop`); each per-layer metric it
+reports is a reader in ``benchmark/metrics/<metric name>.py`` (a function
+``read(traced)`` returning a number, or ``None`` where it finds nothing to
+read). All are looked up under one root, the checkout's, so a later cell,
+configuration, model, loop, traffic mix or metric is a new file and a new
+entry, with no file edited.
 """
 from __future__ import annotations
 
@@ -31,11 +34,58 @@ class Cell:
 
     def reader(self, metric: str):
         """The ``read`` function of per-layer metric ``metric``."""
-        path = self.root / "benchmark" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location("benchmark_metric_" + re.sub(r"\W", "_", metric), path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _module(self.root / "benchmark" / "metrics" / f"{metric}.py", "benchmark_metric_", metric).read
+
+    def loop(self):
+        """The loop class of the cell's traffic (``"loop"``): the one of
+        :data:`.cells.LOOPS` by that name (``stream``, ``request``,
+        ``train``), else the ``LOOP`` of ``benchmark/loops/<loop>.py``.
+
+        A loop file brings a model or a kind of load that the built-in
+        loops do not run. It may import ``benchmark.cells``, ``check``,
+        ``generate``, ``trace``, ``weights``, ``work`` and
+        ``benchmark.reference``, and defines:
+
+          * ``LOOP(cfg, traffic, seed, device)``: the set-up (inputs and
+            weights from the seed; the program built and warmed on every
+            shape the window uses). It leaves ``phases`` (a
+            :class:`.cells.Phases`) and ``work``, the :class:`.work.Work`
+            of one unit, which the loop file counts itself (from
+            ``work.Work`` and ``work.conv_flops``, or a module of its own):
+            ``work.WORK`` knows only the built-in models;
+          * ``LOOP.window(seconds, trace_on)``: the measured window; returns
+            a :class:`.cells.Window` with the cell's end-to-end values and,
+            traced, the profiled slice (:func:`.trace.profile`);
+          * ``LOOP.release()``: frees the program's state;
+          * ``LOOP.check()``: ``{name: reading}`` of what the window
+            produced against the plain reference, which :func:`.check.judge`
+            holds to the configuration's ``correct.limits``;
+          * ``control(cell, seed, device)``: ``{kind: readings}``, the
+            control (and any fault) in the program's place, for
+            :func:`.calibrate.control_readings`.
+        """
+        from . import cells
+
+        name = self.traffic["loop"]
+        return cells.LOOPS[name] if name in cells.LOOPS else self.loop_file().LOOP
+
+    def loop_file(self):
+        """The module ``benchmark/loops/<loop>.py`` of the cell's traffic."""
+        from . import cells
+
+        name = self.traffic["loop"]
+        path = self.root / "benchmark" / "loops" / f"{name}.py"
+        if not path.is_file():
+            raise SystemExit(f"unknown loop {name!r} of traffic {self.traffic_name!r}: not in benchmark.cells.LOOPS "
+                             f"{sorted(cells.LOOPS)} and no file {path}")
+        return _module(path, "benchmark_loop_", name)
+
+
+def _module(path: Path, prefix: str, name: str):
+    spec = importlib.util.spec_from_file_location(prefix + re.sub(r"\W", "_", name), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _for_cell(metrics: list[dict], cell: str, moved: set[str] | None = None) -> list[dict]:

@@ -3,7 +3,12 @@ data files copied into a temporary directory, the configurations cut to a
 few rows and columns and the traffic to a few units, so that a whole run
 of a cell fits a CPU test. The entries of ``benchmark/pending/`` (cells
 measured but not yet held to a bound) are merged in, so their loops are
-tested too."""
+tested too.
+
+A configuration gives its own test size under ``"test_sizes"`` (the keys
+it overrides, such as ``{"height": 64, "width": 96}``); only the tests
+read that key, never a run. The two configurations that predate it take
+theirs from ``TINY``."""
 from __future__ import annotations
 
 import json
@@ -23,19 +28,41 @@ TINY = {"guided-kitti-mixed": {"height": 112, "width": 64},
 FEW = {"warm_units": 2, "trace_units": 2, "check_sample": 4}
 
 
-def make_root(dest: Path) -> Path:
-    bench = dest / "benchmark"
-    bench.mkdir(parents=True)
-    spec = json.loads((REPO / "BENCHMARK.json").read_text())
-    for pending in sorted((REPO / "benchmark" / "pending").glob("*.json")):
+def bench_spec(src: Path = REPO) -> dict:
+    """``src``'s ``BENCHMARK.json`` with the entries of its ``pending/`` merged in."""
+    spec = json.loads((src / "BENCHMARK.json").read_text())
+    for pending in sorted((src / "benchmark" / "pending").glob("*.json")):
         for key, entries in json.loads(pending.read_text()).items():
             spec[key] += entries
-    (dest / "BENCHMARK.json").write_text(json.dumps(spec))
-    for sub in ("configs", "traffic", "metrics"):
-        shutil.copytree(REPO / "benchmark" / sub, bench / sub)
-    for name, size in TINY.items():
-        path = bench / "configs" / f"{name}.json"
-        path.write_text(json.dumps({**json.loads(path.read_text()), **size}))
+    return spec
+
+
+def loop_of(workload: str, src: Path = REPO) -> str:
+    """The loop that ``workload``'s traffic names."""
+    w = next(w for w in bench_spec(src)["workloads"] if w["name"] == workload)
+    return json.loads((src / "benchmark" / "traffic" / f"{w['traffic']}.json").read_text())["loop"]
+
+
+def tiny_size(name: str, cfg: dict) -> dict:
+    """The keys that cut configuration ``name`` to test size."""
+    if "test_sizes" in cfg:
+        return cfg["test_sizes"]
+    if name in TINY:
+        return TINY[name]
+    raise ValueError(f"configuration {name!r} gives no \"test_sizes\"")
+
+
+def make_root(dest: Path, src: Path = REPO) -> Path:
+    """A checkout at ``dest`` with ``src``'s benchmark cut to test size."""
+    bench = dest / "benchmark"
+    bench.mkdir(parents=True)
+    (dest / "BENCHMARK.json").write_text(json.dumps(bench_spec(src)))
+    for sub in ("configs", "traffic", "metrics", "loops"):
+        if (src / "benchmark" / sub).is_dir():
+            shutil.copytree(src / "benchmark" / sub, bench / sub)
+    for path in (bench / "configs").glob("*.json"):
+        cfg = json.loads(path.read_text())
+        path.write_text(json.dumps({**cfg, **tiny_size(path.stem, cfg)}))
     for path in (bench / "traffic").glob("*.json"):
         traffic = json.loads(path.read_text())
         traffic.update({k: v for k, v in FEW.items() if k in traffic})

@@ -42,14 +42,14 @@ def test_a_traced_run_reads_the_tracer_s_host_spans(tiny_root, workload, host, d
     assert not tracing.on()  # on only while the slice was profiled
 
 
-def test_the_request_slice_encodes_each_request_twice(tiny_root):
-    """Two ``engine.encode`` spans a request of the profiled slice, and
-    the reader's value their p50 sum."""
+def test_the_request_slice_encodes_each_request_once(tiny_root):
+    """One ``engine.encode`` span a request of the profiled slice (both
+    streams' wires in one call), and the reader's value their p50."""
     result = traced(tiny_root, "kitti-mixed-request")
     encodes = [s for s in tracing.collected() if s.name == "engine.encode"]
     frames = {s.frame for s in encodes}
-    assert len(encodes) == 2 * len(frames) == 2 * spec.load(tiny_root, "kitti-mixed-request").traffic["trace_units"]
-    assert result["metrics"]["encode_ms.request"]["value"] <= max(s.ms for s in encodes) * 2
+    assert len(encodes) == len(frames) == spec.load(tiny_root, "kitti-mixed-request").traffic["trace_units"]
+    assert result["metrics"]["encode_ms.request"]["value"] <= max(s.ms for s in encodes)
 
 
 @pytest.mark.parametrize("metric", READERS)

@@ -1,7 +1,12 @@
 """The least work of one unit of a configuration, counted from its shapes.
 
 A unit is one two-stream frame of the guided network (``model: guided``)
-or one training step of the step-1 densifier (``model: step1``). Every
+or one training step of the step-1 densifier (``model: step1``): the
+models of the built-in loops (:data:`.cells.LOOPS`), in :data:`WORK`. A
+model that comes in with a loop file (``benchmark/loops/<loop>.py``) is
+counted there, or in a module of its own that the loop file imports, from
+:class:`Work` and :func:`conv_flops` by the same rules; ``WORK`` is not
+edited for it. Every
 conv, normalized conv and pool of the configuration is listed with its
 shapes and its compute dtype, whatever kernel runs it, so a fused or
 faster kernel changes the time and never the count.
